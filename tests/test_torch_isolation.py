@@ -1,0 +1,58 @@
+"""The port stands alone: no JAX, nothing of `repro`, and it runs on the
+card unless the caller asks for the CPU."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules if m == "repro" or
+             m.startswith("repro."))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+    hits = [l for l in path.read_text().splitlines() if pat.match(l)]
+    assert not hits, hits
+
+
+def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from repro_torch.cluster.node import Cluster
+    from repro_torch.cluster.simclock import SimClock
+    from repro_torch.configs.gpt import tiny_gpt
+    from repro_torch.core.engine import PipelineEngine
+    from repro_torch.core.sandbox import CommHooks
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    clock = SimClock()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PipelineEngine(tiny_gpt(layers=2, d=64, heads=4, vocab=256), 1, 2,
+                       4, 16, Cluster(2), clock, CommHooks(clock))
