@@ -5,9 +5,12 @@ Each machine owns one pipeline stage of one data-parallel replica. All
 cross-machine traffic flows through the CommHooks seam
 (core/sandbox.py), so the same step code runs in NORMAL, RECORD and
 REPLAY modes. Stage programs are eager PyTorch; causal attention inside
-every `attn` block runs in the hand-written CUDA kernels
-(kernels/flash_attention.py). Every SimClock charge is the reference's,
-from the same byte sizes, so both engines keep identical ledgers.
+every `attn` and `attn_moe` block runs in the hand-written CUDA kernels
+(kernels/flash_attention.py), and so do the MoE expert products
+(kernels/moe_gmm.py). As in the reference, the MoE load-balance loss
+that the blocks return is not trained on. Every SimClock charge is the
+reference's, from the same byte sizes, so both engines keep identical
+ledgers.
 
 Updates are functional (new tensors, nothing written in place): DP
 replicas share one bucket tuple, and recorded tape entries must not

@@ -35,6 +35,14 @@ SIGNATURES = {
         # q, k, v, o, lse, dout, dq, bh, s, d, dtype, causal, scale, stream
         "flash_bwd_dq": [P, P, P, P, P, P, P, I, I, I, I, I, F, P],
     },
+    "moe_gmm": {
+        # x, w, y, e, m, k, n, dtype, stream
+        "gmm_fwd": [P, P, P, I, I, I, I, I, P],
+        # dy, w, dx, e, m, k, n, dtype, stream
+        "gmm_bwd_dx": [P, P, P, I, I, I, I, I, P],
+        # x, dy, dw, e, m, k, n, dtype, stream
+        "gmm_bwd_dw": [P, P, P, I, I, I, I, I, P],
+    },
 }
 
 

@@ -15,3 +15,9 @@ def attention(q, k, v, causal=True, scale=None):
         s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, -1)
     return torch.einsum("bst,btk->bsk", p, v.float()).to(q.dtype)
+
+
+def grouped_matmul(x, w):
+    """x: (E, C, D), w: (E, D, F) -> (E, C, F): per-expert products in
+    f32, cast to x's dtype."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

@@ -1,6 +1,6 @@
 """Decoder backbone (counterpart of `repro/models/backbone.py`) for
-period-1 `attn` stacks: init, the stack applied as a Python loop over
-the stacked layer dim, and the LM loss.
+period-1 `attn` and `attn_moe` stacks: init, the stack applied as a
+Python loop over the stacked layer dim, and the LM loss.
 
 The parameter tree keeps the reference's shape and leaf order:
 {"embed", "final_ln", "head", "stack": {"scan": ({stacked (L, ...)

@@ -1,7 +1,8 @@
 """Layer blocks (counterpart of `repro/models/blocks.py`), the `attn`
-block only: RMSNorm -> QKV + RoPE -> causal attention -> output
-projection, then RMSNorm -> SwiGLU MLP. There is no mesh, so the
-reference's `shard()` constraints have no counterpart.
+and `attn_moe` blocks: RMSNorm -> QKV + RoPE -> causal attention ->
+output projection, then RMSNorm -> SwiGLU MLP (`attn`) or the MoE FFN
+(`attn_moe`, models/moe.py). There is no mesh, so the reference's
+`shard()` constraints have no counterpart.
 """
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as att
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.tp_padding import HeadPlan, plan_heads
 
 
@@ -109,23 +111,31 @@ def apply_attn(p, x, cfg: ArchConfig, tp: int, *, positions, causal=True,
 # ----------------------------------------------------------- block API
 def init_block(gen, btype: str, cfg: ArchConfig, tp: int, dtype,
                device="cpu") -> dict:
-    if btype != "attn":
+    if btype not in ("attn", "attn_moe"):
         raise NotImplementedError(f"block type {btype!r} is not ported")
     d = cfg.d_model
-    return {"ln1": torch.ones((d,), dtype=dtype, device=device),
-            "attn": init_attn(gen, cfg, tp, dtype, device),
-            "ln2": torch.ones((d,), dtype=dtype, device=device),
-            "mlp": init_mlp(gen, d, cfg.d_ff, dtype, device)}
+    p = {"ln1": torch.ones((d,), dtype=dtype, device=device),
+         "attn": init_attn(gen, cfg, tp, dtype, device),
+         "ln2": torch.ones((d,), dtype=dtype, device=device)}
+    if btype == "attn_moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg, tp, dtype, device)
+    else:
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, dtype, device)
+    return p
 
 
 def apply_block(btype: str, p: dict, x, cfg: ArchConfig, tp: int, *,
                 positions=None, impl="chunked"):
     """Training/prefill path. Returns (x, aux_loss)."""
-    if btype != "attn":
+    if btype not in ("attn", "attn_moe"):
         raise NotImplementedError(f"block type {btype!r} is not ported")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_attn(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, tp,
                    positions=positions, impl=impl)
     x = x + h
-    y = apply_mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if btype == "attn_moe":
+        y, aux = moe_mod.apply_moe(p["moe"], h2, cfg)
+    else:
+        y = apply_mlp(p["mlp"], h2)
     return x + y, aux

@@ -1,0 +1,132 @@
+"""Mixture-of-Experts FFN with capacity-based dispatch (counterpart of
+`repro/models/moe.py`).
+
+The router, the top-k choice, dispatch and combine are plain tensor
+code, as the reference computes them outside any kernel; the three
+expert products (gate, up, down) run in the grouped-matmul kernels
+(kernels/moe_gmm.py), folded from (E, B, C, .) to (E, B*C, .). The
+shared (always-on) experts are one dense SwiGLU MLP of width
+num_shared * d_expert. There is no mesh, so the reference's `shard()`
+constraints have no counterpart.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig, MoECfg
+from repro_torch.kernels import ops
+from repro_torch.models import blocks
+
+
+def phys_experts(moe: MoECfg, ep: int) -> int:
+    return -(-moe.num_experts // ep) * ep
+
+
+def _uniform(gen, shape, fan, dtype, device):
+    """U(-lim, lim) with lim = sqrt(6 / sum(fan)) (Glorot), drawn in
+    `shape` directly (the reference draws (fan..., E) and transposes;
+    the entries are i.i.d. either way)."""
+    lim = (6.0 / sum(fan)) ** 0.5
+    u = torch.rand(shape, generator=gen, device=device)
+    return ((u * 2 - 1) * lim).to(dtype)
+
+
+def init_moe(gen, cfg: ArchConfig, ep: int, dtype, device="cpu") -> dict:
+    moe = cfg.moe
+    d, de = cfg.d_model, (moe.d_expert or cfg.d_ff)
+    e = phys_experts(moe, ep)
+    p = {
+        "router": torch.randn((d, e), generator=gen, device=device) * 0.02,
+        "w_gate": _uniform(gen, (e, d, de), (d, de), dtype, device),
+        "w_up": _uniform(gen, (e, d, de), (d, de), dtype, device),
+        "w_down": _uniform(gen, (e, de, d), (de, d), dtype, device),
+    }
+    if moe.num_shared:
+        ds = moe.num_shared * de
+        p["ws_gate"] = _uniform(gen, (d, ds), (d, ds), dtype, device)
+        p["ws_up"] = _uniform(gen, (d, ds), (d, ds), dtype, device)
+        p["ws_down"] = _uniform(gen, (ds, d), (ds, d), dtype, device)
+    return p
+
+
+def _expert_matmul(x, w):
+    """(E, B, C, K) @ (E, K, N) -> (E, B, C, N) through the kernel."""
+    E, B, C, K = x.shape
+    y = ops.grouped_matmul(x.reshape(E, B * C, K), w)
+    return y.reshape(E, B, C, w.shape[-1])
+
+
+def route(p: dict, x, cfg: ArchConfig, capacity: int):
+    """Router and capacity-based top-k dispatch.
+    Returns (probs, onehot, dispatch, combine): probs (B,S,E) f32,
+    onehot (B,S,k,E), dispatch and combine (B,S,E,C) f32."""
+    moe = cfg.moe
+    E = p["router"].shape[1]
+    k = moe.top_k
+    B, S, _ = x.shape
+    logits = blocks.matmul(x.float(), p["router"])              # (B,S,E)
+    if E > moe.num_experts:                                 # mask padding
+        pad = torch.arange(E, device=x.device) >= moe.num_experts
+        logits = torch.where(pad, torch.full_like(logits, -1e30), logits)
+    probs = torch.softmax(logits, -1)
+    # sorted, descending: the order of the k choices sets the buffer
+    # positions below, as jax.lax.top_k's order does in the reference
+    gate_vals, idx = torch.topk(probs, k, dim=-1, sorted=True)  # (B,S,k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    onehot_i = F.one_hot(idx, E)                            # (B,S,k,E) int
+    onehot = onehot_i.float()
+    # position of each (token, expert-choice) in that expert's buffer;
+    # summed in int32 (a float cumsum on CUDA is refused in
+    # deterministic mode, and the integer sum is exact)
+    flat = onehot_i.reshape(B, S * k, E).to(torch.int32)
+    pos = (torch.cumsum(flat, 1) - 1).float().reshape(B, S, k, E)
+    keep = (pos < capacity) & (onehot > 0)
+    oh_keep = onehot * keep.float()                         # (B,S,k,E)
+    pos_sel = (pos * oh_keep).sum(-1)                       # (B,S,k)
+    slot = F.one_hot(pos_sel.long(), capacity).float()      # (B,S,k,C)
+    slot = slot * keep.any(-1, keepdim=True).float()
+    dispatch = torch.einsum("bske,bskc->bsec", oh_keep, slot)
+    # two two-operand einsums: no (B,S,k,E,C) intermediate
+    combine = torch.einsum("bske,bskc->bsec",
+                           gate_vals[..., None] * oh_keep, slot)
+    return probs, onehot, dispatch, combine
+
+
+def apply_moe(p: dict, x, cfg: ArchConfig,
+              capacity: Optional[int] = None) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """x: (B, S, D) -> (y, aux_loss).
+
+    Capacity-based top-k dispatch (Switch/Mixtral style): the dispatch
+    one-hot (B,S,E,C) routes tokens into per-expert buffers of C slots
+    per batch row; overflow tokens are dropped (their residual path
+    carries them)."""
+    moe = cfg.moe
+    B, S, D = x.shape
+    if capacity is None:
+        capacity = max(4, int(math.ceil(S * moe.top_k / moe.num_experts
+                                        * moe.capacity_factor)))
+    probs, onehot, dispatch, combine = route(p, x, cfg, capacity)
+
+    xin = torch.einsum("bsec,bsd->ebcd", dispatch.to(x.dtype), x)
+    h = F.silu(_expert_matmul(xin, p["w_gate"]))
+    h = h * _expert_matmul(xin, p["w_up"])
+    out = _expert_matmul(h, p["w_down"])
+    y = blocks.einsum("ebcd,bsec->bsd", out, combine.to(x.dtype))
+
+    if moe.num_shared:
+        hs = F.silu(blocks.matmul(x, p["ws_gate"])) * \
+            blocks.matmul(x, p["ws_up"])
+        y = y + blocks.matmul(hs, p["ws_down"])
+
+    # Switch-style load-balance auxiliary loss over live experts.
+    me = probs[..., :moe.num_experts].mean((0, 1))
+    ce = onehot[..., :moe.num_experts].sum(2).mean((0, 1))
+    aux = moe.num_experts * torch.sum(me * ce) * moe.router_aux_weight
+    return y.to(x.dtype), aux
