@@ -8,11 +8,14 @@ Phases (each failure exits non-zero):
      PyTorch version on the card (tolerances below), bitwise repeats,
      and times: the kernel, the plain version, and one PyTorch call as
      a yardstick only, never called by the port
-     (scaled_dot_product_attention for attention, torch.bmm for the
-     grouped expert matmul);
+     (scaled_dot_product_attention for attention, with the window as a
+     mask where there is one; torch.bmm for the grouped expert matmul;
+     none for the RG-LRU scan);
   3. reference: the engine on the card against the same engine on the
      CPU (plain versions) at the campaign's tiny GPT and at the reduced
-     Qwen1.5-MoE config;
+     Qwen1.5-MoE config, and make_train_step on the card against the
+     CPU at the reduced RecurrentGemma config cut to 5 layers (window
+     16 below seq 64);
   4. slice, GPT: PipelineEngine trains GPT-medium at full width (24
      layers, d_model 1024, 16 x 64 heads, d_ff 4096, vocab 50304, f32
      params) over dp=2 x pp=2, 2 micro-batches, global batch 8, seq
@@ -22,12 +25,22 @@ Phases (each failure exits non-zero):
      d_expert 1408, vocab 151936), depth cut to 2 layers, over dp=1 x
      pp=2, 2 micro-batches, global batch 4, seq 2048, with the layer
      weights stored in bf16 (the engine's param_dtype; embedding, head,
-     activations and optimizer state stay f32).
-Each slice runs setup, record_iteration and 3 x train_iteration twice
-with the same seed (losses must be bitwise equal), with every kernel's
-launch count zeroed just before its first run and read just after it.
-The last lines are a JSON line per kernel result, the card line, and
-{"ok": true, "device": {...}}.
+     activations and optimizer state stay f32);
+  6. slice, RecurrentGemma: the launcher (`repro_torch.launch.train`,
+     make_train_step) trains RecurrentGemma-2B at full width and depth
+     (26 layers: 8 x (rglru, rglru, local_attn) + 2 rglru; d_model
+     2560, 10 x 256 heads on one kv head, window 2048, d_ff 7680, vocab
+     256000, tied embedding) for 3 steps at global batch 1, seq 4096,
+     with RunCfg's defaults (bf16 parameters, remat, grad_accum 1).
+Each engine slice runs setup, record_iteration and 3 x train_iteration
+twice with the same seed; the RecurrentGemma slice runs the launcher
+twice. Losses must be bitwise equal across the two runs, and the GPT
+and MoE slices' first losses equal those of the kernels before head dim
+256 and the window came in (so the d <= 128 instances are unchanged).
+Every kernel's launch count is zeroed just before a path's first run
+and read just after it, and must equal the count derived from the
+config. The last lines are a JSON line per kernel result, the card
+line, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -47,29 +60,54 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import torch
 
 ROOT = Path(__file__).resolve().parent
-F32_FWD_TOL, F32_GRAD_TOL, BF16_TOL = 2e-5, 1e-4, 2e-2
+# attention: f32 max |kernel - plain|; bf16 that and also max |kernel -
+# plain| over max |plain| per output (both round to 8 bits: one bf16 step
+# at the top of the range is 2^-8 to 2^-7 of max |plain|, and a dropped
+# kv tile of the window-2048 case moves the output by far more)
+F32_FWD_TOL, F32_GRAD_TOL, BF16_TOL, BF16_REL_TOL = 2e-5, 1e-4, 2e-2, 1e-2
 # grouped matmul: max |kernel - plain| over max |plain| (f32 sums of up
 # to 2048 products in another order; bf16 outputs round to 8 bits)
 GMM_F32_TOL, GMM_BF16_TOL = 1e-4, 2e-2
+# RG-LRU scan: max |kernel - plain| over max |plain| (the kernel fuses
+# each step's multiply-add, the plain version rounds twice; bf16 outputs
+# round to 8 bits)
+SCAN_F32_TOL, SCAN_BF16_TOL = 1e-5, 2e-2
+# card against CPU at the reduced RecurrentGemma: losses and grad norms
+# (f32; sums in other orders over two steps)
+RG_REF_TOL = 1e-4
+# first losses of the GPT-medium and Qwen MoE slices with the d <= 128
+# attention kernels as they were before the window and d = 256 came in
+GPT_FIRST_LOSS, MOE_FIRST_LOSS = 11.067411184310913, 12.318589687347412
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor
 # cores, bf16 tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 # the main paths' attention: micro-batch 2, seq 2048; GPT-medium 16 x 64
 # heads (timed for the JSON line), Qwen1.5-MoE 16 x 128 heads
-SLICE = dict(bh=2 * 16, s=2048, d=64, dtype=torch.float32, causal=True)
+SLICE = dict(bh=2 * 16, s=2048, d=64, dtype=torch.float32, causal=True,
+             window=0)
 MOE_ATTN = dict(SLICE, d=128)
+# RecurrentGemma-2B's local attention: batch 1 x 10 q heads (the one kv
+# head expanded), seq 4096, head dim 256, window 2048, bf16 activations
+RG_ATTN = dict(bh=10, s=4096, d=256, dtype=torch.bfloat16, causal=True,
+               window=2048)
+# its RG-LRU scans: batch 1, seq 4096, width 2560, f32 gates
+RG_SCAN = dict(b=1, s=4096, d=2560, a_dtype=torch.float32,
+               x_dtype=torch.float32)
 # the MoE path's expert products: 60 experts, B*C = 2 * 171 tokens;
 # gate/up (E, M, K) @ (E, K, N), down with K and N swapped
 GMM_SLICE = dict(e=60, m=342, k=2048, n=1408, dtype=torch.float32)
 GMM_DOWN = dict(GMM_SLICE, k=1408, n=2048)
 FLASH = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 GMM = ("gmm_fwd", "gmm_bwd_dx", "gmm_bwd_dw")
+SCAN = ("rglru_fwd", "rglru_bwd")
 SOURCES = {**{n: ("src/repro_torch/kernels/csrc/flash_attention.cu",
                   "src/repro/kernels/flash_attention.py:24")
               for n in FLASH},
            **{n: ("src/repro_torch/kernels/csrc/moe_gmm.cu",
-                  "src/repro/kernels/moe_gmm.py:19") for n in GMM}}
+                  "src/repro/kernels/moe_gmm.py:19") for n in GMM},
+           **{n: ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                  "src/repro/kernels/rglru_scan.py:20") for n in SCAN}}
 
 
 def card_line() -> str:
@@ -96,11 +134,20 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def attention_work(name, bh, s, d, dtype, causal):
+def visible_pairs(s, causal, window):
+    """(q, k) pairs the mask keeps: k <= q when causal, q - k < window
+    when window > 0."""
+    q = torch.arange(s)
+    lo = (q - window + 1).clamp(min=0) if window else torch.zeros_like(q)
+    hi = q + 1 if causal else torch.full_like(q, s)
+    return int((hi - lo).clamp(min=0).sum())
+
+
+def attention_work(name, bh, s, d, dtype, causal, window):
     """(FLOPs, bytes) the function needs at this shape: only the
     unmasked (q, k) pairs count; each input read once, each output
     written once."""
-    pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+    pairs = bh * visible_pairs(s, causal, window)
     el = torch.tensor([], dtype=dtype).element_size()
     tile = bh * s * d * el
     lse = bh * s * 4
@@ -128,65 +175,95 @@ def bound(flops, nbytes, dtype):
 
 def check_kernels(fa):
     """Every attention kernel against its plain version; returns the
-    GPT-shape results by kernel name."""
+    GPT-shape results by kernel name, each with the times at every
+    path's shape under "shapes"."""
+    f32 = dict(dtype=torch.float32, window=0)
     cases = [dict(SLICE),
-             dict(bh=8, s=256, d=16, dtype=torch.float32, causal=True),
-             dict(bh=8, s=256, d=32, dtype=torch.float32, causal=True),
-             dict(bh=8, s=256, d=128, dtype=torch.float32, causal=True),
-             dict(bh=8, s=256, d=64, dtype=torch.float32, causal=False),
-             dict(bh=4, s=200, d=64, dtype=torch.float32, causal=True),
-             dict(bh=8, s=32, d=16, dtype=torch.float32, causal=True),
+             dict(bh=8, s=256, d=16, causal=True, **f32),
+             dict(bh=8, s=256, d=32, causal=True, **f32),
+             dict(bh=8, s=256, d=128, causal=True, **f32),
+             dict(bh=8, s=256, d=64, causal=False, **f32),
+             dict(bh=4, s=200, d=64, causal=True, **f32),
+             dict(bh=8, s=32, d=16, causal=True, **f32),
              dict(MOE_ATTN),
-             dict(SLICE, dtype=torch.bfloat16)]
+             dict(SLICE, dtype=torch.bfloat16),
+             # windows that are no multiple of the tile, ragged S
+             dict(bh=3, s=200, d=256, causal=True, dtype=torch.float32,
+                  window=45),
+             dict(bh=2, s=77, d=256, causal=True, dtype=torch.bfloat16,
+                  window=33),
+             dict(bh=2, s=96, d=256, causal=False, dtype=torch.float32,
+                  window=40),
+             dict(bh=4, s=130, d=64, causal=True, dtype=torch.float32,
+                  window=50),
+             dict(RG_ATTN, dtype=torch.float32),
+             dict(RG_ATTN)]
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    results = {}
+    results, shapes = {}, {n: [] for n in FLASH}
     for c in cases:
-        bh, s, d, dt, causal = c["bh"], c["s"], c["d"], c["dtype"], \
-            c["causal"]
+        bh, s, d, dt, causal, win = c["bh"], c["s"], c["d"], c["dtype"], \
+            c["causal"], c["window"]
         q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen)
                        .to(dt) for _ in range(4))
         sc = d ** -0.5
-        o, lse = fa.flash_fwd(q, k, v, causal, sc)
-        grads = fa.flash_bwd(q, k, v, o, lse, do, causal, sc)
+        o, lse = fa.flash_fwd(q, k, v, causal, sc, win)
+        grads = fa.flash_bwd(q, k, v, o, lse, do, causal, sc, win)
         torch.cuda.synchronize()
-        ro, rlse = fa.attention_fwd_ref(q, k, v, causal, sc)
-        rgrads = fa.attention_bwd_ref(q, k, v, o, lse, do, causal, sc)
+        ro, rlse = fa.attention_fwd_ref(q, k, v, causal, sc, win)
+        rgrads = fa.attention_bwd_ref(q, k, v, o, lse, do, causal, sc, win)
         err = lambda a, b: (a.float() - b.float()).abs().max().item()
-        errs = {"flash_fwd": max(err(o, ro), err(lse, rlse)),
-                "flash_bwd_dkdv": max(err(grads[1], rgrads[1]),
-                                      err(grads[2], rgrads[2])),
-                "flash_bwd_dq": err(grads[0], rgrads[0])}
-        o2, lse2 = fa.flash_fwd(q, k, v, causal, sc)
-        grads2 = fa.flash_bwd(q, k, v, o, lse, do, causal, sc)
+        rel = lambda a, b: err(a, b) / max(b.float().abs().max().item(),
+                                           1e-30)
+        pairs = {"flash_fwd": ((o, ro), (lse, rlse)),
+                 "flash_bwd_dkdv": ((grads[1], rgrads[1]),
+                                    (grads[2], rgrads[2])),
+                 "flash_bwd_dq": ((grads[0], rgrads[0]),)}
+        errs = {n: max(err(*ab) for ab in pairs[n]) for n in FLASH}
+        rels = {n: max(rel(*ab) for ab in pairs[n]) for n in FLASH}
+        del pairs
+        del ro, rlse, rgrads
+        o2, lse2 = fa.flash_fwd(q, k, v, causal, sc, win)
+        grads2 = fa.flash_bwd(q, k, v, o, lse, do, causal, sc, win)
         repeat = torch.equal(o, o2) and torch.equal(lse, lse2) and all(
             torch.equal(a, b) for a, b in zip(grads, grads2))
         f32 = dt == torch.float32
         tols = {"flash_fwd": F32_FWD_TOL if f32 else BF16_TOL,
                 "flash_bwd_dkdv": F32_GRAD_TOL if f32 else BF16_TOL,
                 "flash_bwd_dq": F32_GRAD_TOL if f32 else BF16_TOL}
-        ok = repeat and all(errs[n] <= tols[n] for n in FLASH)
+        rel_tol = math.inf if f32 else BF16_REL_TOL
+        ok = repeat and all(errs[n] <= tols[n] and rels[n] <= rel_tol
+                            for n in FLASH)
         label = (f"bh={bh} s={s} d={d} {str(dt)[6:]} "
-                 f"{'causal' if causal else 'full'}")
+                 f"{'causal' if causal else 'full'}"
+                 + (f" window={win}" if win else ""))
         print(f"  {label}: " + ", ".join(
-            f"{n} err {errs[n]:.3e} (tol {tols[n]:g})" for n in FLASH)
+            f"{n} err {errs[n]:.3e} (tol {tols[n]:g}; rel {rels[n]:.2e}, "
+            f"tol {rel_tol:g})" for n in FLASH)
             + f", bitwise repeat {repeat}", flush=True)
         if not ok:
             raise SystemExit(f"kernel check failed at {label}")
-        if c in (SLICE, MOE_ATTN):
+        if c in (SLICE, MOE_ATTN, RG_ATTN):
             timed = {n: {"max_abs_err": errs[n]} for n in FLASH}
             time_attention(fa, timed, c, q, k, v, do, o, lse, sc)
+            for n in FLASH:
+                shapes[n].append({"shape": label, **timed[n]})
             if c == SLICE:
                 results = timed
+        del q, k, v, do, o, lse, grads, o2, lse2, grads2
+    for n in FLASH:
+        results[n]["shapes"] = shapes[n]
     return results
 
 
 def time_attention(fa, results, shape, q, k, v, do, o, lse, sc):
-    causal, reps = shape["causal"], 10
-    fwd = lambda: fa.flash_fwd(q, k, v, causal, sc)
+    causal, win, reps = shape["causal"], shape["window"], 10
+    fwd = lambda: fa.flash_fwd(q, k, v, causal, sc, win)
     dkdv_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), do.data_ptr())
     dk, dv, dq = (torch.empty_like(q) for _ in range(3))
-    common = (shape["bh"], shape["s"], shape["d"], 0, int(causal), sc)
+    common = (shape["bh"], shape["s"], shape["d"],
+              0 if shape["dtype"] == torch.float32 else 1, int(causal),
+              win, sc)
     results["flash_fwd"]["ms"] = time_ms(fwd, reps)
     results["flash_bwd_dkdv"]["ms"] = time_ms(lambda: fa.launch(
         "flash_bwd_dkdv", *dkdv_args, dk.data_ptr(), dv.data_ptr(),
@@ -195,17 +272,25 @@ def time_attention(fa, results, shape, q, k, v, do, o, lse, sc):
         "flash_bwd_dq", *dkdv_args, dq.data_ptr(), *common,
         device=q.device), reps)
     results["flash_fwd"]["plain_ms"] = time_ms(
-        lambda: fa.attention_fwd_ref(q, k, v, causal, sc), reps)
+        lambda: fa.attention_fwd_ref(q, k, v, causal, sc, win), reps)
     plain_bwd = time_ms(
-        lambda: fa.attention_bwd_ref(q, k, v, o, lse, do, causal, sc), reps)
+        lambda: fa.attention_bwd_ref(q, k, v, o, lse, do, causal, sc, win),
+        reps)
     # the plain backward computes dq, dk and dv in one pass
     results["flash_bwd_dkdv"]["plain_ms"] = plain_bwd
     results["flash_bwd_dq"]["plain_ms"] = plain_bwd
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    results["flash_fwd"]["library_ms"] = time_ms(
-        lambda: sdpa(q, k, v, is_causal=causal, scale=sc), reps)
+    # the window as a boolean mask (True = visible); no mask when causal
+    # alone says it all
+    mask = None
+    if win:
+        mask = fa._mask(shape["s"], shape["s"], causal, win, q.device)
+    lib = lambda a, b, c: sdpa(a, b, c, attn_mask=mask,
+                               is_causal=causal and mask is None, scale=sc)
+    results["flash_fwd"]["library_ms"] = time_ms(lambda: lib(q, k, v),
+                                                 reps)
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
-    out = sdpa(ql, kl, vl, is_causal=causal, scale=sc)
+    out = lib(ql, kl, vl)
     # SDPA's backward yields dq, dk and dv from one call
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         out, (ql, kl, vl), do, retain_graph=True), reps)
@@ -214,7 +299,9 @@ def time_attention(fa, results, shape, q, k, v, do, o, lse, sc):
     for n in FLASH:
         results[n]["bound_ms"], results[n]["bound_by"] = bound(
             *attention_work(n, **shape), shape["dtype"])
-        print(f"  {n} at d={shape['d']}: {results[n]['ms']:.4f} ms, "
+        print(f"  {n} at d={shape['d']}"
+              + (f" window={win}" if win else "")
+              + f": {results[n]['ms']:.4f} ms, "
               f"plain {results[n]['plain_ms']:.4f} ms, library "
               f"{results[n]['library_ms']:.4f} ms, bound "
               f"{results[n]['bound_ms']:.4f} ms ({results[n]['bound_by']})",
@@ -294,6 +381,93 @@ def time_gmm(gm, results, shape, x, w, dy):
               f"{work[0] / r['ms'] / 1e9:.2f} TFLOP/s", flush=True)
 
 
+def scan_work(name, b, s, d, a_dtype, x_dtype):
+    """(FLOPs, bytes) of one scan at this shape: forward reads a and x
+    and writes h (a multiply and an add a step); backward reads a, h and
+    g and writes da and dx (three operations a step)."""
+    n = b * s * d
+    el = lambda dt: torch.tensor([], dtype=dt).element_size()
+    if name == "rglru_fwd":
+        return 2 * n, n * (el(a_dtype) + 2 * el(x_dtype))
+    return 3 * n, n * (2 * el(a_dtype) + 3 * el(x_dtype))
+
+
+def check_rglru(rg):
+    """Both scan kernels against their plain versions at the
+    RecurrentGemma path's shape and at ragged small shapes; returns the
+    path-shape results by kernel name."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [dict(RG_SCAN),
+             dict(RG_SCAN, a_dtype=bf16, x_dtype=bf16),
+             dict(b=3, s=37, d=50, a_dtype=f32, x_dtype=f32),
+             dict(b=2, s=130, d=65, a_dtype=f32, x_dtype=f32),
+             dict(b=3, s=37, d=50, a_dtype=bf16, x_dtype=bf16),
+             dict(b=2, s=130, d=65, a_dtype=f32, x_dtype=bf16),
+             dict(b=2, s=130, d=65, a_dtype=bf16, x_dtype=f32)]
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    results = {}
+    for c in cases:
+        b, s, d, adt, xdt = (c[k] for k in ("b", "s", "d", "a_dtype",
+                                            "x_dtype"))
+        # the model's decays: a in [0.9, 1), long memories
+        a = (0.9 + 0.1 * torch.rand(b, s, d, device="cuda",
+                                    generator=gen)).to(adt)
+        x = torch.randn(b, s, d, device="cuda", generator=gen).to(xdt)
+        g = torch.randn(b, s, d, device="cuda", generator=gen).to(xdt)
+        h = rg.rglru_fwd(a, x)
+        da, dx = rg.rglru_bwd(a, h, g)
+        torch.cuda.synchronize()
+        want = {"rglru_fwd": [rg.rglru_fwd_ref(a, x)],
+                "rglru_bwd": list(rg.rglru_bwd_ref(a, h, g))}
+        got = {"rglru_fwd": [h], "rglru_bwd": [da, dx]}
+        h2 = rg.rglru_fwd(a, x)
+        da2, dx2 = rg.rglru_bwd(a, h, g)
+        repeat = torch.equal(h, h2) and torch.equal(da, da2) and \
+            torch.equal(dx, dx2)
+        errs, rels = {}, {}
+        for n in SCAN:
+            for gt, w in zip(got[n], want[n]):
+                if gt.shape != w.shape or gt.dtype != w.dtype:
+                    raise SystemExit(f"{n}: {tuple(gt.shape)} {gt.dtype} "
+                                     f"against {tuple(w.shape)} {w.dtype}")
+            errs[n] = max((gt.float() - w.float()).abs().max().item()
+                          for gt, w in zip(got[n], want[n]))
+            rels[n] = max(((gt.float() - w.float()).abs().max()
+                           / w.float().abs().max().clamp(min=1e-30)).item()
+                          for gt, w in zip(got[n], want[n]))
+        tol = SCAN_F32_TOL if bf16 not in (adt, xdt) else SCAN_BF16_TOL
+        label = f"B={b} S={s} D={d} a {str(adt)[6:]} x {str(xdt)[6:]}"
+        print(f"  {label}: " + ", ".join(
+            f"{n} err {errs[n]:.3e} (rel {rels[n]:.2e}, tol {tol:g})"
+            for n in SCAN) + f", bitwise repeat {repeat}", flush=True)
+        if not repeat or any(rels[n] > tol for n in SCAN):
+            raise SystemExit(f"RG-LRU scan check failed at {label}")
+        if c == RG_SCAN:
+            results = {n: {"max_abs_err": errs[n]} for n in SCAN}
+            time_rglru(rg, results, c, a, x, h, g)
+        del a, x, g, h, da, dx, h2, da2, dx2, want, got
+    return results
+
+
+def time_rglru(rg, results, shape, a, x, h, g):
+    calls = {"rglru_fwd": (lambda: rg.rglru_fwd(a, x),
+                           lambda: rg.rglru_fwd_ref(a, x)),
+             "rglru_bwd": (lambda: rg.rglru_bwd(a, h, g),
+                           lambda: rg.rglru_bwd_ref(a, h, g))}
+    for name, (kern, plain) in calls.items():
+        r = results[name]
+        r["ms"] = time_ms(kern, 20)
+        r["plain_ms"] = time_ms(plain, 3)
+        # no single PyTorch call computes a linear recurrence
+        r["library_ms"] = None
+        work = scan_work(name, **shape)
+        r["bound_ms"], r["bound_by"] = bound(*work, shape["a_dtype"])
+        print(f"  {name} at B={shape['b']} S={shape['s']} D={shape['d']}: "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"none, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+              f"{work[1] / r['ms'] / 1e9:.1f} GB/s", flush=True)
+
+
 def ptxas_summary(log: str):
     """One line per kernel instance: registers, shared memory and spill
     bytes (ptxas prints the spill line of an entry before its register
@@ -301,13 +475,14 @@ def ptxas_summary(log: str):
     name, spills, out = None, "?", []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '.*?"
-                      r"(fwd_kernel|bwd_dkdv_kernel|bwd_dq_kernel|"
-                      r"gmm_kernel)I(f|13__nv_bfloat16)((?:L[ib]\d+E)*)E",
-                      line)
+                      r"((?:rglru_)?(?:fwd|bwd)(?:_dkdv|_dq)?_kernel|"
+                      r"gmm_kernel)I((?:f|13__nv_bfloat16)+)"
+                      r"((?:L[ib]\d+E)*)E", line)
         if m:
-            dt = "f32" if m.group(2) == "f" else "bf16"
+            dts = ["f32" if t == "f" else "bf16" for t in
+                   re.findall(r"f|13__nv_bfloat16", m.group(2))]
             args = re.findall(r"L[ib](\d+)E", m.group(3))
-            name = f"{m.group(1)}<{', '.join([dt] + args)}>"
+            name = f"{m.group(1)}<{', '.join(dts + args)}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -320,23 +495,27 @@ def ptxas_summary(log: str):
     return out
 
 
-def profile_step(eng, step_s: float):
-    """Device time by kernel over one train_iteration, from the
-    profiler's CUDA events. The idle share is taken against `step_s`,
-    the same step's wall time measured without the profiler (its host
+# device-time groups of a step's breakdown, matched in this order
+GROUPS = (("RG-LRU scan kernels", r"rglru_(fwd|bwd)_kernel"),
+          ("attention kernels", r"\bfwd_kernel|bwd_dkdv_kernel|"
+                                r"bwd_dq_kernel"),
+          ("grouped matmul kernels", r"gmm_kernel"),
+          ("matmul (cuBLAS)", r"gemm|sm90_xmma|cutlass|nvjet"))
+ACTIVITIES = ("CPU", "CUDA")
+
+
+def breakdown(events, label: str, wall_us: float, step_s: float):
+    """Device time by kernel and by group from the profiler's CUDA
+    events of one step. The idle share is taken against `step_s`, the
+    same step's wall time measured without the profiler (its host
     overhead stretches the profiled wall, not the kernels)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.train_iteration()
-        torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    for e in events:
+        # a scheduled profiler also marks its step on the device's
+        # timeline ("ProfilerStep#N"): a span, not a kernel
+        if e.device_type == DeviceType.CUDA and \
+                not e.name.startswith("ProfilerStep"):
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us()
     busy = sum(by_name.values())
@@ -344,18 +523,13 @@ def profile_step(eng, step_s: float):
         print("  profiler: no device time recorded; breakdown not "
               "measured", flush=True)
         return
-    groups = {"attention kernels": 0.0, "grouped matmul kernels": 0.0,
-              "matmul (cuBLAS)": 0.0, "other": 0.0}
+    groups = {g: 0.0 for g, _ in GROUPS}
+    groups["other (elementwise, reductions, copies)"] = 0.0
     for n, us in by_name.items():
-        if re.search(r"fwd_kernel|bwd_dkdv_kernel|bwd_dq_kernel", n):
-            groups["attention kernels"] += us
-        elif re.search(r"gmm_kernel", n):
-            groups["grouped matmul kernels"] += us
-        elif re.search(r"gemm|sm90_xmma|cutlass", n, re.I):
-            groups["matmul (cuBLAS)"] += us
-        else:
-            groups["other"] += us
-    print(f"  profiled train_iteration: device busy {busy / 1e3:.1f} ms; "
+        g = next((g for g, pat in GROUPS if re.search(pat, n, re.I)),
+                 "other (elementwise, reductions, copies)")
+        groups[g] += us
+    print(f"  profiled {label}: device busy {busy / 1e3:.1f} ms; "
           f"wall {wall_us / 1e3:.1f} ms with the profiler on, "
           f"{step_s * 1e3:.1f} ms without; idle share "
           f"{1 - busy / (step_s * 1e6):.3f}", flush=True)
@@ -363,6 +537,19 @@ def profile_step(eng, step_s: float):
         print(f"    {g}: {us / 1e3:.1f} ms ({us / busy:.3f} of busy)")
     for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"    {us / 1e3:9.1f} ms  {n[:110]}")
+
+
+def profile_step(eng, step_s: float):
+    """The breakdown of one train_iteration of the engine."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[getattr(ProfilerActivity, a)
+                             for a in ACTIVITIES]) as prof:
+        eng.train_iteration()
+        torch.cuda.synchronize()
+    breakdown(prof.events(), "train_iteration",
+              (time.perf_counter() - t0) * 1e6, step_s)
 
 
 def build_engine(cfg, device, seed=0, dp=2, pp=2, batch=8, seq=32,
@@ -403,6 +590,39 @@ def check_reference():
         if not (all(map(math.isfinite, losses["cuda"])) and diff <= 1e-4):
             raise SystemExit(f"card engine disagrees with the CPU engine "
                              f"at {cfg.name}")
+
+
+def check_rg_reference():
+    """make_train_step on the card (kernels) against the CPU (plain
+    versions) for two steps at the reduced RecurrentGemma cut to 5
+    layers (one period and a two-layer rglru tail), window 16 below seq
+    64, f32 parameters: same seed, same weights, same batches."""
+    from repro_torch.configs import recurrentgemma_2b
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.train import data as data_mod
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.optimizer import AdamCfg
+    cfg = recurrentgemma_2b.reduced().replace(num_layers=5)
+    run = step_mod.RunCfg(adam=AdamCfg(lr=1e-3, warmup_steps=2),
+                          param_dtype=torch.float32)
+    stream = data_mod.stream_for(cfg, ShapeCfg("ref", "train", 64, 2))
+    cpu_state = step_mod.init_state(cfg, run, device="cpu")
+    states = {"cuda": step_mod.state_to(cpu_state, "cuda"),
+              "cpu": cpu_state}
+    stats = {}
+    for dev, state in states.items():
+        fn = step_mod.make_train_step(cfg, run, device=dev)
+        stats[dev] = []
+        for i in range(2):
+            state, st = fn(state, stream.batch(i))
+            stats[dev] += [float(st["loss"]), float(st["grad_norm"])]
+    diff = max(abs(a - b) for a, b in zip(stats["cuda"], stats["cpu"]))
+    print(f"  {cfg.name} x {cfg.num_layers} layers (loss, grad norm) x 2 "
+          f"steps: cuda {stats['cuda']} cpu {stats['cpu']} max diff "
+          f"{diff:.3e} (tol {RG_REF_TOL:g})", flush=True)
+    if not (all(map(math.isfinite, stats["cuda"])) and diff <= RG_REF_TOL):
+        raise SystemExit("card train step disagrees with the CPU at "
+                         f"{cfg.name}")
 
 
 def run_slice(mods, cfg, dp: int, batch: int, param_dtype, count: bool):
@@ -455,11 +675,12 @@ def expected_launches(cfg, dp: int, moe: bool):
     want = {"flash_fwd": fwd, "flash_bwd_dkdv": bwd, "flash_bwd_dq": bwd}
     products = 3 if moe else 0
     want.update(gmm_fwd=products * fwd, gmm_bwd_dx=products * bwd,
-                gmm_bwd_dw=products * bwd)
+                gmm_bwd_dw=products * bwd, rglru_fwd=0, rglru_bwd=0)
     return want
 
 
-def drive(mods, label, cfg, dp, batch, moe, param_dtype=torch.float32):
+def drive(mods, label, cfg, dp, batch, moe, first_loss,
+          param_dtype=torch.float32):
     print(f"[slice] {label}", flush=True)
     losses, launches = run_slice(mods, cfg, dp, batch, param_dtype,
                                  count=True)
@@ -468,9 +689,95 @@ def drive(mods, label, cfg, dp, batch, moe, param_dtype=torch.float32):
     if not all(map(math.isfinite, losses)) or launches != want:
         raise SystemExit(f"slice failed: losses {losses}, launches "
                          f"{launches} (want {want})")
+    print(f"  first loss {losses[0]!r}, before the window and head dim "
+          f"256 came in {first_loss!r}: bitwise equal "
+          f"{losses[0] == first_loss}", flush=True)
+    if losses[0] != first_loss:
+        raise SystemExit("the d <= 128 attention kernels changed results")
     print(f"[slice] {label}: second run, same seed", flush=True)
     again, _ = run_slice(mods, cfg, dp, batch, param_dtype, count=False)
     same = again == losses
+    print(f"  losses bitwise equal across same-seed runs: {same}",
+          flush=True)
+    if not same:
+        raise SystemExit("same-seed runs disagree")
+    return launches
+
+
+def rg_expected_launches(cfg, steps: int):
+    """Launches over `steps` train steps with remat: a period's layers
+    run forward twice (the forward, then the recompute in the backward),
+    tail layers once; every layer runs backward once."""
+    from repro_torch.models.backbone import scan_layout
+    period, n_periods, n_tail = scan_layout(cfg)
+    count = lambda t: (n_periods * cfg.block_pattern.count(t),
+                       sum(cfg.block_pattern[i % period] == t
+                           for i in range(n_tail)))
+    (rs, rt), (ls, lt) = count("rglru"), count("local_attn")
+    want = {"rglru_fwd": 2 * rs + rt, "rglru_bwd": rs + rt,
+            "flash_fwd": 2 * ls + lt, "flash_bwd_dkdv": ls + lt,
+            "flash_bwd_dq": ls + lt, "gmm_fwd": 0, "gmm_bwd_dx": 0,
+            "gmm_bwd_dw": 0}
+    return {n: steps * c for n, c in want.items()}
+
+
+def run_rg(mods, argv, count: bool):
+    """The launcher's main over `argv`. With `count`, every kernel's
+    launch count is zeroed just before and read just after; without,
+    the last step is profiled."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.launch import train as launch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if count:
+        for mod in mods:
+            mod.reset_launches()
+    traces, on_step, prof = [], None, None
+    if not count:
+        prof = profile(activities=[getattr(ProfilerActivity, a)
+                                   for a in ACTIVITIES],
+                       schedule=schedule(wait=2, warmup=0, active=1),
+                       on_trace_ready=lambda p: traces.append(p.events()))
+        prof.start()
+        on_step = lambda step, stats: prof.step()
+    t0 = time.perf_counter()
+    hist = launch.main(argv, on_step=on_step)
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.stop()
+    launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+    steps = [h["seconds"] for h in hist]
+    print(f"  launcher wall {wall:.2f} s (init, count_params and steps); "
+          f"step wall s {steps}", flush=True)
+    print(f"  losses {[h['loss'] for h in hist]}, grad norms "
+          f"{[h['grad_norm'] for h in hist]}", flush=True)
+    print(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} B",
+          flush=True)
+    return hist, launches, traces
+
+
+def drive_rg(mods, cfg, argv, steps: int):
+    print(f"[slice] {cfg.name}, {cfg.num_layers} layers, batch 1 seq "
+          f"4096, launcher defaults (bf16 params, remat)", flush=True)
+    hist, launches, _ = run_rg(mods, argv, count=True)
+    want = rg_expected_launches(cfg, steps)
+    print(f"  launches in the main path: {launches} (want {want})",
+          flush=True)
+    losses = [h["loss"] for h in hist]
+    if not all(map(math.isfinite, losses)) or launches != want:
+        raise SystemExit(f"slice failed: losses {losses}, launches "
+                         f"{launches} (want {want})")
+    print(f"[slice] {cfg.name}: second run, same seed, last step "
+          f"profiled", flush=True)
+    again, _, traces = run_rg(mods, argv, count=False)
+    if traces:
+        breakdown(traces[-1], "train step 3", again[-1]["seconds"] * 1e6,
+                  hist[-1]["seconds"])
+    else:
+        print("  profiler: no trace recorded; breakdown not measured",
+              flush=True)
+    same = [h["loss"] for h in again] == losses
     print(f"  losses bitwise equal across same-seed runs: {same}",
           flush=True)
     if not same:
@@ -484,11 +791,12 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import qwen2_moe_a2_7b
+    from repro_torch.configs import qwen2_moe_a2_7b, recurrentgemma_2b
     from repro_torch.configs.gpt import GPT_MEDIUM
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gm
+    from repro_torch.kernels import rglru_scan as rg
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -500,21 +808,24 @@ def main() -> int:
     libs = _build.libraries()
     print(f"[card] kernel libraries built in {libs.seconds:.2f} s "
           f"(loaded after {time.perf_counter() - t0:.2f} s)", flush=True)
-    for lib in ("flash_attention", "moe_gmm"):
+    for lib in ("flash_attention", "moe_gmm", "rglru_scan"):
         for line in ptxas_summary(libs.log.get(lib, "")):
             print(f"  ptxas: {line}")
 
     print("[kernels] against the plain versions", flush=True)
     results = check_kernels(fa)
     results.update(check_gmm(gm))
+    results.update(check_rglru(rg))
 
-    print("[reference] card engine against the CPU engine", flush=True)
+    print("[reference] card against the CPU", flush=True)
     check_reference()
+    check_rg_reference()
 
-    mods = (fa, gm)
+    mods = (fa, gm, rg)
     gpt = GPT_MEDIUM
     launches = drive(mods, f"GPT-medium, {gpt.num_layers} layers, dp=2 "
-                     f"pp=2 mb=2 batch 8 seq 2048", gpt, 2, 8, moe=False)
+                     f"pp=2 mb=2 batch 8 seq 2048", gpt, 2, 8, moe=False,
+                     first_loss=GPT_FIRST_LOSS)
     # 1.76 G parameters at 2 layers: with f32 layer weights the first
     # Adam update needs more than the card's 80 GB (flat m, v and master
     # beside the weights, their buckets, the gradients and the update's
@@ -523,11 +834,17 @@ def main() -> int:
     moe_launches = drive(mods, f"{qwen.name}, {qwen.num_layers} layers, "
                          f"dp=1 pp=2 mb=2 batch 4 seq 2048, bf16 layer "
                          f"weights", qwen, 1, 4, moe=True,
+                         first_loss=MOE_FIRST_LOSS,
                          param_dtype=torch.bfloat16)
-    by_path = {n: {gpt.name: launches[n], qwen.name: moe_launches[n]}
-               for n in FLASH + GMM}
+    rgc, steps = recurrentgemma_2b.CONFIG, 3
+    rg_launches = drive_rg(mods, rgc, [
+        "--arch", rgc.name, "--steps", str(steps), "--batch", "1",
+        "--seq", "4096", "--log-every", "1", "--device", "cuda"], steps)
+    names = FLASH + GMM + SCAN
+    by_path = {n: {gpt.name: launches[n], qwen.name: moe_launches[n],
+                   rgc.name: rg_launches[n]} for n in names}
 
-    print("kernels: " + ", ".join(f"{n} ok" for n in FLASH + GMM))
+    print("kernels: " + ", ".join(f"{n} ok" for n in names))
     print(f"whole run {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
@@ -535,8 +852,10 @@ def main() -> int:
          "launches_by_path": by_path[n],
          **{k: results[n][k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
-                                       "library_ms")}}
-        for n in FLASH + GMM]}))
+                                       "library_ms")},
+         **({"shapes": results[n]["shapes"]} if "shapes" in results[n]
+            else {})}
+        for n in names]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,11 @@
 (for example `jax.tree.map(np.asarray, backbone.init_params(...))`) and
 returns the port's tree of tensors; `params_to_numpy` is the reverse.
 Both keep the tree's shape and bytes, so a run of the port and a run of
-the reference can start from the very same weights.
+the reference can start from the very same weights. Every leaf keeps
+its own dtype (RecurrentGemma's f32 `lam`, `b_a` and `b_x` among bf16
+weights), and empty subtrees (a `None` period position when there are
+fewer layers than one period, an empty `tail`) pass through as they
+are.
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ def _to_tensor(a) -> torch.Tensor:
 
 
 def params_from_numpy(tree, device, dtype=None):
-    """numpy tree -> tensors on `device` (cast to `dtype` if given)."""
+    """numpy tree -> tensors on `device` (all cast to `dtype` if given,
+    else each in its own dtype)."""
     return tree_map(lambda a: _to_tensor(a).to(device=device, dtype=dtype),
                     tree)
 

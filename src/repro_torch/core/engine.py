@@ -18,7 +18,6 @@ change after the fact.
 """
 from __future__ import annotations
 
-import os
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -33,6 +32,7 @@ from repro_torch.cluster.simclock import SimClock
 from repro_torch.core import flatbuf
 from repro_torch.core import groups as groups_mod
 from repro_torch.core.sandbox import CommHooks, CommMode, Tape
+from repro_torch.device import deterministic_cuda, resolve_device
 from repro_torch.kernels import _build
 from repro_torch.models import backbone, blocks
 from repro_torch.train import data as data_mod
@@ -73,26 +73,6 @@ def stage_type(stage: int, pp: int) -> str:
     if stage == pp - 1:
         return "last"
     return "middle"
-
-
-def resolve_device(device) -> torch.device:
-    """The card unless the caller names another device; raises when
-    CUDA is asked for (or defaulted to) and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("PipelineEngine runs on CUDA by default and no "
-                           "CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    return dev
-
-
-def _deterministic_cuda() -> None:
-    """Bitwise-repeatable CUDA runs: cuBLAS needs a fixed workspace
-    (read when cuBLAS starts, so this runs before the first matmul)."""
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.use_deterministic_algorithms(True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 # ---------------------------------------------------------------- stages
@@ -148,7 +128,8 @@ def make_stage_fns(cfg: ArchConfig, stage: int, pp: int):
         B, S = x_or_tokens.shape[:2]
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         x, _ = backbone.apply_stack(params["stack"], x, cfg, 1,
-                                    positions=positions, impl="dense")
+                                    positions=positions, impl="dense",
+                                    remat=False)
         return x
 
     def head_loss(params, x, tokens):
@@ -199,9 +180,9 @@ class PipelineEngine:
         if global_batch % (dp * micro_batches):
             raise ValueError("global_batch must divide over dp x "
                              "micro_batches")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, "PipelineEngine")
         if self.device.type == "cuda":
-            _deterministic_cuda()
+            deterministic_cuda()
         self.cfg, self.dp, self.pp = cfg, dp, pp
         self.global_batch, self.seq_len = global_batch, seq_len
         self.nmb = micro_batches

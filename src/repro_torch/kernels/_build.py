@@ -27,13 +27,14 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every exported function, by library
 SIGNATURES = {
     "flash_attention": {
-        # q, k, v, o, lse, bh, s, d, dtype, causal, scale, stream
-        "flash_fwd": [P, P, P, P, P, I, I, I, I, I, F, P],
-        # q, k, v, o, lse, dout, dk, dv, bh, s, d, dtype, causal, scale,
-        # stream
-        "flash_bwd_dkdv": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
-        # q, k, v, o, lse, dout, dq, bh, s, d, dtype, causal, scale, stream
-        "flash_bwd_dq": [P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+        # q, k, v, o, lse, bh, s, d, dtype, causal, window, scale, stream
+        "flash_fwd": [P, P, P, P, P, I, I, I, I, I, I, F, P],
+        # q, k, v, o, lse, dout, dk, dv, bh, s, d, dtype, causal, window,
+        # scale, stream
+        "flash_bwd_dkdv": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+        # q, k, v, o, lse, dout, dq, bh, s, d, dtype, causal, window,
+        # scale, stream
+        "flash_bwd_dq": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
     },
     "moe_gmm": {
         # x, w, y, e, m, k, n, dtype, stream
@@ -42,6 +43,12 @@ SIGNATURES = {
         "gmm_bwd_dx": [P, P, P, I, I, I, I, I, P],
         # x, dy, dw, e, m, k, n, dtype, stream
         "gmm_bwd_dw": [P, P, P, I, I, I, I, I, P],
+    },
+    "rglru_scan": {
+        # a, x, h, b, s, d, a_dtype, x_dtype, stream
+        "rglru_fwd": [P, P, P, I, I, I, I, I, P],
+        # a, h, g, da, dx, b, s, d, a_dtype, x_dtype, stream
+        "rglru_bwd": [P, P, P, P, P, I, I, I, I, I, P],
     },
 }
 

@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches by name. Each wrapper adds one where it launches its
@@ -62,17 +62,29 @@ def launch(fn: str, *args, device) -> None:
     LAUNCHES[fn] += 1
 
 
-def _mask(s_len: int, t_len: int, device) -> torch.Tensor:
-    return torch.ones(s_len, t_len, dtype=torch.bool, device=device).tril()
+def _mask(s_len: int, t_len: int, causal: bool, window: int, device):
+    """(S, T) bool, True where key k is visible to query q: k <= q when
+    causal, q - k < window when window > 0; None when all are."""
+    if not causal and not window:
+        return None
+    qi = torch.arange(s_len, device=device)[:, None]
+    ki = torch.arange(t_len, device=device)[None]
+    ok = (ki <= qi) if causal else torch.ones_like(qi == ki)
+    return ok & (qi - ki < window) if window else ok
+
+
+def _check_window(window: int) -> None:
+    if window < 0:
+        raise ValueError(f"window {window} < 0 (0 means no window)")
 
 
 # ------------------------------------------------------ plain versions
-def attention_fwd_ref(q, k, v, causal: bool, scale: float):
+def attention_fwd_ref(q, k, v, causal: bool, scale: float, window=0):
     """(o in q's dtype, lse (BH, S) f32) in plain torch ops."""
     s = torch.einsum("bsk,btk->bst", q.float(), k.float()) * scale
-    if causal:
-        s = torch.where(_mask(s.shape[1], s.shape[2], s.device), s,
-                        torch.full_like(s, NEG_INF))
+    mask = _mask(s.shape[1], s.shape[2], causal, window, s.device)
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(-1)
     p = torch.exp(s - m[..., None])
     den = torch.clamp(p.sum(-1), min=1e-30)
@@ -80,15 +92,16 @@ def attention_fwd_ref(q, k, v, causal: bool, scale: float):
     return o.to(q.dtype), m + torch.log(den)
 
 
-def attention_bwd_ref(q, k, v, o, lse, do, causal: bool, scale: float):
+def attention_bwd_ref(q, k, v, o, lse, do, causal: bool, scale: float,
+                      window=0):
     """(dq, dk, dv) by the kernels' formula: P = exp(S*scale - lse),
     D = rowsum(dO * O), dS = P * (dO V^T - D)."""
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     p = torch.exp(torch.einsum("bsk,btk->bst", qf, kf) * scale
                   - lse[..., None])
-    if causal:
-        p = torch.where(_mask(p.shape[1], p.shape[2], p.device), p,
-                        torch.zeros_like(p))
+    mask = _mask(p.shape[1], p.shape[2], causal, window, p.device)
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros_like(p))
     dv = torch.einsum("bst,bsk->btk", p, dof)
     dp = torch.einsum("bsk,btk->bst", dof, vf)
     delta = (dof * o.float()).sum(-1)
@@ -99,33 +112,38 @@ def attention_bwd_ref(q, k, v, o, lse, do, causal: bool, scale: float):
 
 
 # -------------------------------------------------------------- wrappers
-def flash_fwd(q, k, v, causal: bool, scale: float):
+def flash_fwd(q, k, v, causal: bool, scale: float, window: int = 0):
     """(o, lse): the `flash_fwd` kernel for CUDA tensors, the plain
     version for CPU tensors."""
     _check(q, k, v)
+    _check_window(window)
     if _device_kind(q) == "cpu":
-        return attention_fwd_ref(q, k, v, causal, scale)
+        return attention_fwd_ref(q, k, v, causal, scale, window)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     bh, s, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
            o.data_ptr(), lse.data_ptr(), bh, s, d, _DTYPE_CODE[q.dtype],
-           int(causal), float(scale), device=q.device)
+           int(causal), int(window), float(scale), device=q.device)
     return o, lse
 
 
-def flash_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
+def flash_bwd(q, k, v, o, lse, do, causal: bool, scale: float,
+              window: int = 0):
     """(dq, dk, dv): the `flash_bwd_dkdv` and `flash_bwd_dq` kernels for
     CUDA tensors, the plain version for CPU tensors."""
     _check(q, k, v, o, do)
+    _check_window(window)
     if _device_kind(q) == "cpu":
-        return attention_bwd_ref(q, k, v, o, lse, do, causal, scale)
+        return attention_bwd_ref(q, k, v, o, lse, do, causal, scale,
+                                 window)
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     lse = lse.contiguous()
     bh, s, d = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    common = (bh, s, d, _DTYPE_CODE[q.dtype], int(causal), float(scale))
+    common = (bh, s, d, _DTYPE_CODE[q.dtype], int(causal), int(window),
+              float(scale))
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
            lse.data_ptr(), do.data_ptr())
     launch("flash_bwd_dkdv", *ins, dk.data_ptr(), dv.data_ptr(), *common,
@@ -139,20 +157,23 @@ class FlashAttentionFn(torch.autograd.Function):
     wrappers above."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        o, lse = flash_fwd(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, causal: bool, scale: float, window: int = 0):
+        o, lse = flash_fwd(q, k, v, causal, scale, window)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal, ctx.scale,
+                               ctx.window)
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, *, causal: bool = True, scale=None):
-    """q,k,v: (BH, S, d). Returns (BH, S, d) in q's dtype."""
+def flash_attention(q, k, v, *, causal: bool = True, scale=None,
+                    window: int = 0):
+    """q,k,v: (BH, S, d). Returns (BH, S, d) in q's dtype. window > 0
+    limits query q to keys k with q - k < window."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    return FlashAttentionFn.apply(q, k, v, causal, scale)
+    return FlashAttentionFn.apply(q, k, v, causal, scale, window)

@@ -6,14 +6,17 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_gmm as _gmm
+from repro_torch.kernels import rglru_scan as _rg
 
 
-def flash_attention(q, k, v, *, causal=True):
+def flash_attention(q, k, v, *, causal=True, window=0):
     """(B, H, S, K) attention through the CUDA kernels (plain version for
-    CPU tensors). Differentiable."""
+    CPU tensors); window > 0 limits each query to the `window` latest
+    keys. Differentiable."""
     b, h, s, kd = q.shape
     fold = lambda t: t.reshape(b * h, t.shape[2], t.shape[3])
-    out = _fa.flash_attention(fold(q), fold(k), fold(v), causal=causal)
+    out = _fa.flash_attention(fold(q), fold(k), fold(v), causal=causal,
+                              window=window)
     return out.reshape(b, h, s, kd)
 
 
@@ -24,3 +27,10 @@ def grouped_matmul(x, w):
     Differentiable."""
     dt = torch.promote_types(x.dtype, w.dtype)
     return _gmm.grouped_matmul(x.to(dt), w.to(dt))
+
+
+def rglru_scan(a, x):
+    """h_t = a_t h_{t-1} + x_t along axis 1 of (B, S, D) through the CUDA
+    kernels (plain version for CPU tensors), with an f32 carry and h in
+    x's dtype. Differentiable."""
+    return _rg.rglru_scan(a, x)

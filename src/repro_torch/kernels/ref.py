@@ -21,3 +21,14 @@ def grouped_matmul(x, w):
     """x: (E, C, D), w: (E, D, F) -> (E, C, F): per-expert products in
     f32, cast to x's dtype."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def rglru_scan(a, x):
+    """h_t = a_t h_{t-1} + x_t along axis 1 of (B, S, D), h_{-1} = 0: a
+    sequential loop with an f32 carry, each h_t cast to x's dtype."""
+    h = torch.zeros_like(x[:, 0], dtype=torch.float32)
+    out = []
+    for t in range(x.shape[1]):
+        h = a[:, t].float() * h + x[:, t].float()
+        out.append(h.to(x.dtype))
+    return torch.stack(out, 1)

@@ -62,21 +62,24 @@ def dense_attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
 def attend(q, k, v, q_pos, k_pos, *, causal=True, window=0,
            impl="chunked", scale=None):
     """Full-sequence attention through `ops.flash_attention`, whatever
-    `impl` names: the kernel is the port's only attention path.
+    `impl` names: the kernel is the port's only attention path, the
+    sliding window (`window` > 0, `local_attn`) included.
 
     q_pos and k_pos must be 0..S-1 in every row (the training and
-    prefill positions); the kernel masks by index. Windowed attention,
-    q and kv of different lengths (KV caches, decode) and a non-default
-    scale are not ported yet."""
+    prefill positions); the kernel masks by index. q and kv of different
+    lengths (KV caches, decode) and a non-default scale are not ported
+    yet."""
     B, S, N, G, K = q.shape
     T = k.shape[1]
-    if window or S != T or scale not in (None, K ** -0.5):
+    if S != T or scale not in (None, K ** -0.5):
         raise NotImplementedError(
-            "attend supports unwindowed full-sequence attention only")
+            "attend supports full-sequence attention at the default "
+            "scale only")
     if impl not in ("dense", "chunked"):
         raise ValueError(f"unknown attention impl {impl!r}")
     qh = q.permute(0, 2, 3, 1, 4).reshape(B, N * G, S, K)
     grp = lambda t: t.permute(0, 2, 1, 3)[:, :, None] \
         .expand(B, N, G, T, K).reshape(B, N * G, T, K)
-    out = ops.flash_attention(qh, grp(k), grp(v), causal=causal)
+    out = ops.flash_attention(qh, grp(k), grp(v), causal=causal,
+                              window=window)
     return out.reshape(B, N, G, S, K).permute(0, 3, 1, 2, 4)

@@ -1,8 +1,11 @@
-"""Layer blocks (counterpart of `repro/models/blocks.py`), the `attn`
-and `attn_moe` blocks: RMSNorm -> QKV + RoPE -> causal attention ->
-output projection, then RMSNorm -> SwiGLU MLP (`attn`) or the MoE FFN
-(`attn_moe`, models/moe.py). There is no mesh, so the reference's
-`shard()` constraints have no counterpart.
+"""Layer blocks (counterpart of `repro/models/blocks.py`):
+- `attn`, `local_attn` and `attn_moe`: RMSNorm -> QKV + RoPE -> causal
+  attention (sliding-window for `local_attn`) -> output projection, then
+  RMSNorm -> SwiGLU MLP, or the MoE FFN for `attn_moe` (models/moe.py);
+- `rglru`: RMSNorm -> RG-LRU temporal mixing (models/rglru.py), then
+  RMSNorm -> SwiGLU MLP.
+There is no mesh, so the reference's `shard()` constraints have no
+counterpart. The other block types raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -11,7 +14,26 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.tp_padding import HeadPlan, plan_heads
+
+ATTN_TYPES = ("attn", "local_attn", "attn_moe")
+# where each block type the port lacks is queued (ROADMAP.md)
+_NOT_PORTED = {
+    "mla_moe": "ROADMAP Queue 1 item 10 (DeepSeek-V2-Lite)",
+    "attn_cross": "ROADMAP Queue 1 item 10 (Whisper)",
+    "enc_attn": "ROADMAP Queue 1 item 10 (Whisper)",
+    "mlstm": "ROADMAP Queue 1 item 10 and Queue 2 item 4 (xLSTM-350M)",
+    "slstm": "ROADMAP Queue 1 item 10 (xLSTM-350M)",
+}
+
+
+def _refuse(btype: str):
+    if btype in _NOT_PORTED:
+        raise NotImplementedError(f"block type {btype!r} is not ported "
+                                  f"yet: {_NOT_PORTED[btype]}")
+    if btype not in ATTN_TYPES + ("rglru",):
+        raise ValueError(btype)
 
 
 def _promote(*ts):
@@ -111,12 +133,16 @@ def apply_attn(p, x, cfg: ArchConfig, tp: int, *, positions, causal=True,
 # ----------------------------------------------------------- block API
 def init_block(gen, btype: str, cfg: ArchConfig, tp: int, dtype,
                device="cpu") -> dict:
-    if btype not in ("attn", "attn_moe"):
-        raise NotImplementedError(f"block type {btype!r} is not ported")
+    _refuse(btype)
     d = cfg.d_model
-    p = {"ln1": torch.ones((d,), dtype=dtype, device=device),
-         "attn": init_attn(gen, cfg, tp, dtype, device),
-         "ln2": torch.ones((d,), dtype=dtype, device=device)}
+    ones = lambda: torch.ones((d,), dtype=dtype, device=device)
+    if btype == "rglru":
+        return {"ln1": ones(),
+                "rnn": rglru_mod.init_rglru(gen, cfg, dtype, device),
+                "ln2": ones(),
+                "mlp": init_mlp(gen, d, cfg.d_ff, dtype, device)}
+    p = {"ln1": ones(), "attn": init_attn(gen, cfg, tp, dtype, device),
+         "ln2": ones()}
     if btype == "attn_moe":
         p["moe"] = moe_mod.init_moe(gen, cfg, tp, dtype, device)
     else:
@@ -127,11 +153,17 @@ def init_block(gen, btype: str, cfg: ArchConfig, tp: int, dtype,
 def apply_block(btype: str, p: dict, x, cfg: ArchConfig, tp: int, *,
                 positions=None, impl="chunked"):
     """Training/prefill path. Returns (x, aux_loss)."""
-    if btype not in ("attn", "attn_moe"):
-        raise NotImplementedError(f"block type {btype!r} is not ported")
+    _refuse(btype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if btype == "rglru":
+        h, _ = rglru_mod.apply_rglru(p["rnn"],
+                                     rmsnorm(x, p["ln1"], cfg.norm_eps), cfg)
+        x = x + h
+        y = apply_mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+        return x + y, aux
+    window = cfg.attention_window if btype == "local_attn" else 0
     h = apply_attn(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, tp,
-                   positions=positions, impl=impl)
+                   positions=positions, window=window, impl=impl)
     x = x + h
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if btype == "attn_moe":

@@ -1,16 +1,19 @@
-"""In-memory checkpoints (counterpart of `repro/train/checkpoint.py`).
+"""Checkpoints (counterpart of `repro/train/checkpoint.py`): to disk
+("remote storage", `save`/`load`) and in memory (neighbour copies).
 
 State held here lives in host memory: CUDA tensors are copied to the
-host explicitly when they are put.
+host explicitly when they are saved or put.
 """
 from __future__ import annotations
 
+import os
+import pickle
 from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 
 def to_host(tree):
@@ -27,6 +30,27 @@ def _nbytes(leaf) -> int:
 
 def tree_bytes(tree) -> int:
     return sum(_nbytes(l) for l in tree_leaves(tree))
+
+
+def save(path: str, tree, step: int) -> int:
+    """Write a checkpoint of `tree` (tensors go to the host first) at
+    `step`, atomically (a temporary file renamed into place); returns
+    the bytes of its leaves."""
+    leaves, treedef = tree_flatten(to_host(tree))
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    payload = {"step": step, "treedef": treedef, "leaves": leaves}
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f, protocol=4)
+    os.replace(tmp, path)
+    return sum(_nbytes(l) for l in leaves)
+
+
+def load(path: str) -> Tuple[Any, int]:
+    """(tree with host tensors, step) as `save` wrote them."""
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    return payload["treedef"].unflatten(payload["leaves"]), payload["step"]
 
 
 class InMemoryCheckpoint:

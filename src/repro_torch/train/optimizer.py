@@ -1,12 +1,17 @@
 """AdamW, per-leaf and fully flat (counterpart of
 `repro/train/optimizer.py`).
 
-Updates are functional: each makes new tensors and writes nothing in
-place, because DP replicas share one bucket tuple and recorded tape
-entries must not change after the fact. The flat path mirrors the
-per-leaf arithmetic elementwise (same op order, same scalar schedule,
-per-leaf norm partials summed in leaf order), which keeps the two paths
-bitwise identical.
+`adam_update` and `adam_update_flat` are functional: each makes new
+tensors and writes nothing in place, because the engine's DP replicas
+share one bucket tuple and recorded tape entries must not change after
+the fact. The flat path mirrors the per-leaf arithmetic elementwise
+(same op order, same scalar schedule, per-leaf norm partials summed in
+leaf order), which keeps the two paths bitwise identical.
+
+`adam_update_` is the in-place counterpart for a caller that owns its
+state (`train/step.py`, as the reference's launcher donates it): the
+same arithmetic in the same order, so the same bits, written into m, v,
+master and the parameters leaf after leaf, a slice at a time.
 """
 from __future__ import annotations
 
@@ -100,6 +105,55 @@ def adam_update(grads, opt_state: dict, cfg: AdamCfg,
                  "v": tdef.unflatten([o[1] for o in out]),
                  "master": new_master, "step": step}
     return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+# Elements per slice of the in-place update: the temporaries of one
+# slice (a few f32 copies) stay far below a large leaf's own size.
+INPLACE_CHUNK = 1 << 24
+
+
+@torch.no_grad()
+def adam_update_(params, grads, opt_state: dict, cfg: AdamCfg,
+                 param_dtype=torch.bfloat16):
+    """AdamW in place; returns (params, stats).
+
+    Writes the new m, v, master (and step) into `opt_state` and the new
+    parameters into the tensors of `params` (a leaf whose dtype is not
+    `param_dtype` is replaced by a new tensor in the returned tree, as
+    adam_update casts it). The arithmetic is adam_update's, elementwise
+    in the same order, so the results are bitwise equal to it. `grads`,
+    a list in `params`' leaf order, is consumed: each gradient is
+    dropped from it once used."""
+    flat_p, tdef = tree_flatten(params)
+    flat_g = grads
+    step = opt_state["step"] + 1
+    gnorm = global_norm(flat_g)
+    scale = _clip_scale(cfg, gnorm)
+    lr = _schedule(cfg, step)
+    b1c = 1.0 - cfg.b1 ** step.float()
+    b2c = 1.0 - cfg.b2 ** step.float()
+    flat_m = tdef.flatten_up_to(opt_state["m"])
+    flat_v = tdef.flatten_up_to(opt_state["v"])
+    flat_ma = tdef.flatten_up_to(opt_state["master"])
+    new_p = []
+    for i, (p, m, v, ma) in enumerate(zip(flat_p, flat_m, flat_v,
+                                          flat_ma)):
+        g = flat_g[i].reshape(-1)
+        flat_g[i] = None
+        out_dt = p.dtype if param_dtype is None else param_dtype
+        if out_dt != p.dtype:
+            p = torch.empty(p.shape, dtype=out_dt, device=p.device)
+        mf, vf, maf, pf = (t.view(-1) for t in (m, v, ma, p))
+        for lo in range(0, g.numel(), INPLACE_CHUNK):
+            sl = slice(lo, lo + INPLACE_CHUNK)
+            nm, nv, nma = _moments(cfg, g[sl].float() * scale, mf[sl],
+                                   vf[sl], maf[sl], lr, b1c, b2c)
+            mf[sl], vf[sl], maf[sl] = nm, nv, nma
+            pf[sl] = nma.to(out_dt)
+        del g
+        new_p.append(p)
+    opt_state["step"] = step
+    return tdef.unflatten(new_p), {"grad_norm": gnorm, "lr": lr}
 
 
 # ------------------------------------------------ fully-flat hot path

@@ -37,9 +37,10 @@ def _t(a, dtype=torch.float32):
     return torch.from_numpy(a).to(dtype)
 
 
-# test_kernels.py's four shapes with S cut to <= 256; its head dim 256
-# has no kernel instance (HEAD_DIMS), so the last case runs d=64, the
-# GPT-medium head dim, instead.
+# test_kernels.py's four shapes with S cut to <= 256; the last case runs
+# d=64, the GPT-medium head dim, in place of its d=256 (which
+# tests/test_torch_recurrentgemma.py holds against dense_attention with
+# a window).
 @pytest.mark.parametrize("bh,s,d,causal,dtype", [
     (2, 256, 128, True, "float32"),
     (1, 256, 128, False, "float32"),
@@ -82,11 +83,14 @@ def test_attend_matches_dense_attention(g):
 
 
 def test_attend_refuses_windowed_attention():
+    """attend refuses a window it cannot mean (a negative one); a window
+    of 0 or more goes to the kernel, as the local_attn tests of
+    test_torch_recurrentgemma.py show."""
     q = torch.zeros(1, 8, 1, 1, 16)
     k = torch.zeros(1, 8, 1, 16)
     pos = torch.arange(8)[None]
-    with pytest.raises(NotImplementedError):
-        att.attend(q, k, k, pos, pos, window=4)
+    with pytest.raises(ValueError, match="window"):
+        att.attend(q, k, k, pos, pos, window=-4)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -132,7 +136,7 @@ def test_forward_lse_is_the_log_normalizer():
                                rtol=F32_TOL, atol=F32_TOL)
 
 
-@pytest.mark.parametrize("d", [48, 256])
+@pytest.mark.parametrize("d", [48, 512])
 def test_unsupported_head_dim_raises(d):
     q = torch.zeros(1, 64, d)
     with pytest.raises(ValueError, match="head dim"):

@@ -56,3 +56,24 @@ def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         PipelineEngine(tiny_gpt(layers=2, d=64, heads=4, vocab=256), 1, 2,
                        4, 16, Cluster(2), clock, CommHooks(clock))
+
+
+@pytest.mark.parametrize("entry", ["init_state", "make_train_step",
+                                   "make_prefill_step", "launcher"])
+def test_train_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, entry):
+    from repro_torch.configs import recurrentgemma_2b
+    from repro_torch.launch import train as launch
+    from repro_torch.train import step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, run = recurrentgemma_2b.reduced(), step.RunCfg()
+    calls = {
+        "init_state": lambda: step.init_state(cfg, run),
+        "make_train_step": lambda: step.make_train_step(cfg, run),
+        "make_prefill_step": lambda: step.make_prefill_step(cfg, run),
+        "launcher": lambda: launch.main(["--arch", "recurrentgemma-2b",
+                                         "--reduced", "--steps", "1"]),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
