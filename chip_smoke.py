@@ -5,17 +5,19 @@
 Phases (each failure exits non-zero):
   1. card: name and power limit, torch and CUDA versions, kernel build;
   2. kernels: every CUDA kernel of the main paths against its plain
-     PyTorch version on the card (tolerances below), bitwise repeats,
-     and times: the kernel, the plain version, and one PyTorch call as
+     PyTorch version on the card (tolerances below; the kernels' outputs
+     are allocated filled with NaN, so one left unwritten fails),
+     bitwise repeats, and times: the kernel, the plain version, and one PyTorch call as
      a yardstick only, never called by the port
      (scaled_dot_product_attention for attention, with the window as a
      mask where there is one; torch.bmm for the grouped expert matmul;
-     none for the RG-LRU scan);
+     none for the RG-LRU scan and the chunkwise mLSTM);
   3. reference: the engine on the card against the same engine on the
      CPU (plain versions) at the campaign's tiny GPT and at the reduced
      Qwen1.5-MoE config, and make_train_step on the card against the
      CPU at the reduced RecurrentGemma config cut to 5 layers (window
-     16 below seq 64);
+     16 below seq 64) and the reduced xLSTM config at 4 layers (seq
+     200: three chunks of 64 and a padded fourth);
   4. slice, GPT: PipelineEngine trains GPT-medium at full width (24
      layers, d_model 1024, 16 x 64 heads, d_ff 4096, vocab 50304, f32
      params) over dp=2 x pp=2, 2 micro-batches, global batch 8, seq
@@ -31,19 +33,24 @@ Phases (each failure exits non-zero):
      (26 layers: 8 x (rglru, rglru, local_attn) + 2 rglru; d_model
      2560, 10 x 256 heads on one kv head, window 2048, d_ff 7680, vocab
      256000, tied embedding) for 3 steps at global batch 1, seq 4096,
-     with RunCfg's defaults (bf16 parameters, remat, grad_accum 1).
+     with RunCfg's defaults (bf16 parameters, remat, grad_accum 1);
+  7. slice, xLSTM: the launcher trains xLSTM-350M at full width and
+     depth (24 layers: 12 x (mlstm, slstm); d_model 1024, 4 heads of
+     512 in the mLSTM, vocab 50304, untied head) for XL_STEPS steps at
+     global batch 4, seq XL_SEQ, with RunCfg's defaults.
 Each engine slice runs setup, record_iteration and 3 x train_iteration
-twice with the same seed; the RecurrentGemma slice runs the launcher
-twice. Losses must be bitwise equal across the two runs, and the GPT
-and MoE slices' first losses equal those of the kernels before head dim
-256 and the window came in (so the d <= 128 instances are unchanged).
-Every kernel's launch count is zeroed just before a path's first run
-and read just after it, and must equal the count derived from the
-config. The last lines are a JSON line per kernel result, the card
-line, and {"ok": true, "device": {...}}.
+twice with the same seed; the launcher slices run the launcher twice.
+Losses must be bitwise equal across the two runs, and the GPT and MoE
+slices' first losses equal those of the kernels before head dim 256 and
+the window came in (so the d <= 128 instances are unchanged). Every
+kernel's launch count is zeroed just before a path's first run and read
+just after it, and must equal the count derived from the config. The
+last lines are a JSON line per kernel result, the card line, and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -72,9 +79,10 @@ GMM_F32_TOL, GMM_BF16_TOL = 1e-4, 2e-2
 # each step's multiply-add, the plain version rounds twice; bf16 outputs
 # round to 8 bits)
 SCAN_F32_TOL, SCAN_BF16_TOL = 1e-5, 2e-2
-# card against CPU at the reduced RecurrentGemma: losses and grad norms
-# (f32; sums in other orders over two steps)
-RG_REF_TOL = 1e-4
+# make_train_step, card against CPU at the reduced RecurrentGemma and
+# xLSTM: losses and grad norms (f32; sums in other orders over two
+# steps)
+STEP_REF_TOL = 1e-4
 # first losses of the GPT-medium and Qwen MoE slices with the d <= 128
 # attention kernels as they were before the window and d = 256 came in
 GPT_FIRST_LOSS, MOE_FIRST_LOSS = 11.067411184310913, 12.318589687347412
@@ -98,16 +106,28 @@ RG_SCAN = dict(b=1, s=4096, d=2560, a_dtype=torch.float32,
 # gate/up (E, M, K) @ (E, K, N), down with K and N swapped
 GMM_SLICE = dict(e=60, m=342, k=2048, n=1408, dtype=torch.float32)
 GMM_DOWN = dict(GMM_SLICE, k=1408, n=2048)
+# chunkwise mLSTM: max |kernel - plain| over max |plain| per output (f32
+# sums over K = 512 and the chunk in other orders; bf16 h rounds to 8
+# bits, the gradients are f32 from the same bf16 inputs)
+MLSTM_F32_TOL, MLSTM_BF16_TOL = 1e-4, 1e-2
+# the xLSTM-350M slice: steps per launcher run and sequence length
+XL_STEPS, XL_SEQ = 2, 2048
+# its mLSTM cells: batch 4 x 4 heads, seq XL_SEQ, head dim 512, chunk
+# 64, f32 q, k, v and log gates
+XL_MLSTM = dict(bh=16, s=XL_SEQ, k=512, chunk=64, dtype=torch.float32)
 FLASH = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 GMM = ("gmm_fwd", "gmm_bwd_dx", "gmm_bwd_dw")
 SCAN = ("rglru_fwd", "rglru_bwd")
+MLSTM = ("mlstm_fwd", "mlstm_bwd_dqdk", "mlstm_bwd_dv")
 SOURCES = {**{n: ("src/repro_torch/kernels/csrc/flash_attention.cu",
                   "src/repro/kernels/flash_attention.py:24")
               for n in FLASH},
            **{n: ("src/repro_torch/kernels/csrc/moe_gmm.cu",
                   "src/repro/kernels/moe_gmm.py:19") for n in GMM},
            **{n: ("src/repro_torch/kernels/csrc/rglru_scan.cu",
-                  "src/repro/kernels/rglru_scan.py:20") for n in SCAN}}
+                  "src/repro/kernels/rglru_scan.py:20") for n in SCAN},
+           **{n: ("src/repro_torch/kernels/csrc/mlstm.cu",
+                  "src/repro/kernels/mlstm.py:22") for n in MLSTM}}
 
 
 def card_line() -> str:
@@ -115,6 +135,25 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def unwritten_is_nan():
+    """Every new tensor from torch.empty comes filled with NaN (the
+    check deterministic mode has for reads of memory never written), so
+    an output element a kernel leaves unwritten fails its comparison and
+    its bitwise repeat; warn_only keeps ops that lack a deterministic
+    version running. The timed calls run outside, without the fill."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.utils.deterministic.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.utils.deterministic.fill_uninitialized_memory = was[2]
 
 
 def time_ms(fn, reps: int) -> float:
@@ -206,8 +245,9 @@ def check_kernels(fa):
         q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen)
                        .to(dt) for _ in range(4))
         sc = d ** -0.5
-        o, lse = fa.flash_fwd(q, k, v, causal, sc, win)
-        grads = fa.flash_bwd(q, k, v, o, lse, do, causal, sc, win)
+        with unwritten_is_nan():
+            o, lse = fa.flash_fwd(q, k, v, causal, sc, win)
+            grads = fa.flash_bwd(q, k, v, o, lse, do, causal, sc, win)
         torch.cuda.synchronize()
         ro, rlse = fa.attention_fwd_ref(q, k, v, causal, sc, win)
         rgrads = fa.attention_bwd_ref(q, k, v, o, lse, do, causal, sc, win)
@@ -222,8 +262,9 @@ def check_kernels(fa):
         rels = {n: max(rel(*ab) for ab in pairs[n]) for n in FLASH}
         del pairs
         del ro, rlse, rgrads
-        o2, lse2 = fa.flash_fwd(q, k, v, causal, sc, win)
-        grads2 = fa.flash_bwd(q, k, v, o, lse, do, causal, sc, win)
+        with unwritten_is_nan():
+            o2, lse2 = fa.flash_fwd(q, k, v, causal, sc, win)
+            grads2 = fa.flash_bwd(q, k, v, o, lse, do, causal, sc, win)
         repeat = torch.equal(o, o2) and torch.equal(lse, lse2) and all(
             torch.equal(a, b) for a, b in zip(grads, grads2))
         f32 = dt == torch.float32
@@ -327,11 +368,13 @@ def check_gmm(gm):
         x, w, dy = rnd(e, m, k), rnd(e, k, n, sc=k ** -0.5), rnd(e, m, n)
         run = lambda: (gm.gmm_fwd(x, w), gm.gmm_bwd_dx(dy, w),
                        gm.gmm_bwd_dw(x, dy))
-        got = run()
+        with unwritten_is_nan():
+            got = run()
         torch.cuda.synchronize()
         want = (gm.gmm_fwd_ref(x, w), gm.gmm_bwd_dx_ref(dy, w),
                 gm.gmm_bwd_dw_ref(x, dy))
-        again = run()
+        with unwritten_is_nan():
+            again = run()
         repeat = all(torch.equal(a, b) for a, b in zip(got, again))
         tol = GMM_F32_TOL if dt == torch.float32 else GMM_BF16_TOL
         errs, rels = {}, {}
@@ -346,7 +389,7 @@ def check_gmm(gm):
         print(f"  {label}: " + ", ".join(
             f"{nm} err {errs[nm]:.3e} (rel {rels[nm]:.2e}, tol {tol:g})"
             for nm in GMM) + f", bitwise repeat {repeat}", flush=True)
-        if not repeat or any(rels[nm] > tol for nm in GMM):
+        if not repeat or not all(rels[nm] <= tol for nm in GMM):
             raise SystemExit(f"grouped matmul check failed at {label}")
         if c in (GMM_SLICE, GMM_DOWN):
             timed = {nm: {"max_abs_err": errs[nm]} for nm in GMM}
@@ -414,14 +457,16 @@ def check_rglru(rg):
                                     generator=gen)).to(adt)
         x = torch.randn(b, s, d, device="cuda", generator=gen).to(xdt)
         g = torch.randn(b, s, d, device="cuda", generator=gen).to(xdt)
-        h = rg.rglru_fwd(a, x)
-        da, dx = rg.rglru_bwd(a, h, g)
+        with unwritten_is_nan():
+            h = rg.rglru_fwd(a, x)
+            da, dx = rg.rglru_bwd(a, h, g)
         torch.cuda.synchronize()
         want = {"rglru_fwd": [rg.rglru_fwd_ref(a, x)],
                 "rglru_bwd": list(rg.rglru_bwd_ref(a, h, g))}
         got = {"rglru_fwd": [h], "rglru_bwd": [da, dx]}
-        h2 = rg.rglru_fwd(a, x)
-        da2, dx2 = rg.rglru_bwd(a, h, g)
+        with unwritten_is_nan():
+            h2 = rg.rglru_fwd(a, x)
+            da2, dx2 = rg.rglru_bwd(a, h, g)
         repeat = torch.equal(h, h2) and torch.equal(da, da2) and \
             torch.equal(dx, dx2)
         errs, rels = {}, {}
@@ -440,7 +485,7 @@ def check_rglru(rg):
         print(f"  {label}: " + ", ".join(
             f"{n} err {errs[n]:.3e} (rel {rels[n]:.2e}, tol {tol:g})"
             for n in SCAN) + f", bitwise repeat {repeat}", flush=True)
-        if not repeat or any(rels[n] > tol for n in SCAN):
+        if not repeat or not all(rels[n] <= tol for n in SCAN):
             raise SystemExit(f"RG-LRU scan check failed at {label}")
         if c == RG_SCAN:
             results = {n: {"max_abs_err": errs[n]} for n in SCAN}
@@ -468,6 +513,149 @@ def time_rglru(rg, results, shape, a, x, h, g):
               f"{work[1] / r['ms'] / 1e9:.1f} GB/s", flush=True)
 
 
+def mlstm_work(name, bh, s, k, chunk, dtype):
+    """(FLOPs, bytes) one mLSTM kernel needs at this shape, per (head,
+    chunk) summed: products over the causal pairs s <= t only; each
+    input read once, each output written once (the forward's outputs
+    include the per-chunk states and each row's m_loc and den)."""
+    nc, L = s // chunk, chunk
+    pairs = L * (L + 1) // 2
+    el = torch.tensor([], dtype=dtype).element_size()
+    row = bh * s * k                       # elements of one (BH, S, K)
+    gates = bh * s * 4                     # one (BH, S) f32 array
+    states = bh * nc * (k * k + k + 1) * 4
+    if name == "mlstm_fwd":    # q C, C update; q k^T, (D * qk) v; q.n, n
+        flops = bh * nc * (4 * L * k * k + 4 * k * pairs + 4 * L * k)
+        return flops, 4 * row * el + 2 * gates + states + 2 * gates
+    if name == "mlstm_bwd_dqdk":
+        # C dnum, dC v, dC update; v dnum^T, dP k, dP^T q; dh.h, n, dn
+        flops = bh * nc * (6 * L * k * k + 6 * k * pairs + 6 * L * k)
+        return flops, (5 * row * el + 4 * gates + states
+                       + 2 * row * 4)
+    # dv: k dC, dC update; q k^T, (A * qk)^T dnum; dh.h, q.dq, k.dk
+    flops = bh * nc * (4 * L * k * k + 4 * k * pairs + 6 * L * k)
+    return flops, (4 * row * el + 2 * row * 4 + 4 * gates + bh * nc * 4
+                   + row * 4 + 2 * gates)
+
+
+def mlstm_inputs(gen, bh, s, k, dtype):
+    """q, k, v ~ N(0, 1) in `dtype`; log_i ~ N(1, 1), log_f =
+    log_sigmoid(N(3, 1)) (the model's forget bias is 3), f32: the floor
+    exp(-m_loc) wins on some rows and |den| on the others."""
+    rnd = lambda *sh: torch.randn(*sh, device="cuda", generator=gen)
+    q, kk, v = (rnd(bh, s, k).to(dtype) for _ in range(3))
+    li = rnd(bh, s) + 1.0
+    lf = torch.nn.functional.logsigmoid(rnd(bh, s) + 3.0)
+    return q, kk, v, li, lf
+
+
+def check_mlstm(ml):
+    """The three mLSTM kernels against their plain versions at the
+    xLSTM-350M path's shape, at seq 4096, at a bf16 shape and at short
+    shapes with chunks below 64 (the path's apply_mlstm passes min(64,
+    S)). The backward kernels run twice: on the plain forward's outputs,
+    which the plain backward reads too, and on the forward kernel's own,
+    as in training; both are held against the plain backward. Returns
+    the path-shape results."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [dict(XL_MLSTM), dict(XL_MLSTM, s=4096),
+             dict(bh=4, s=1024, k=512, chunk=64, dtype=bf16),
+             dict(bh=3, s=96, k=128, chunk=32, dtype=f32),
+             dict(bh=2, s=120, k=64, chunk=40, dtype=f32),
+             dict(bh=2, s=60, k=192, chunk=20, dtype=f32),
+             dict(bh=2, s=96, k=64, chunk=16, dtype=bf16)]
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    results = {}
+    for c in cases:
+        bh, s, k, chunk, dt = (c[x] for x in ("bh", "s", "k", "chunk",
+                                               "dtype"))
+        ins = mlstm_inputs(gen, bh, s, k, dt)
+        dh = torch.randn(bh, s, k, device="cuda", generator=gen).to(dt)
+        rh, raux = ml.mlstm_fwd_ref(*ins, chunk)
+        with unwritten_is_nan():
+            h, aux = ml.mlstm_fwd(*ins, chunk)
+            grads = ml.mlstm_bwd(*ins, rh, dh, raux, chunk)
+            own = ml.mlstm_bwd(*ins, h, dh, aux, chunk)
+        torch.cuda.synchronize()
+        rgrads = ml.mlstm_bwd_ref(*ins, rh, dh, raux, chunk)
+        floor = float((raux[4].abs() < torch.exp(-raux[3])).float().mean())
+        C_st, n_st, m_st, m_loc, den = aux
+        rC, rn, rm, rml, rd = raux
+        # every chunk's m after the first, which both start at -1e30
+        if not torch.equal(m_st[:, 0], rm[:, 0]):
+            raise SystemExit("mlstm_fwd: the first chunk's m is not -1e30")
+        got = {"mlstm_fwd": [h, C_st, n_st, m_st[:, 1:], m_loc, den],
+               "mlstm_bwd_dqdk": list(grads[:2]) + list(own[:2]),
+               "mlstm_bwd_dv": list(grads[2:]) + list(own[2:])}
+        want = {"mlstm_fwd": [rh, rC, rn, rm[:, 1:], rml, rd],
+                "mlstm_bwd_dqdk": list(rgrads[:2]) * 2,
+                "mlstm_bwd_dv": list(rgrads[2:]) * 2}
+        errs, rels = {}, {}
+        for n in MLSTM:
+            for g, w in zip(got[n], want[n]):
+                if g.shape != w.shape or g.dtype != w.dtype:
+                    raise SystemExit(f"{n}: {tuple(g.shape)} {g.dtype} "
+                                     f"against {tuple(w.shape)} {w.dtype}")
+            errs[n] = max((g.float() - w.float()).abs().max().item()
+                          for g, w in zip(got[n], want[n]))
+            rels[n] = max(((g.float() - w.float()).abs().max()
+                           / w.float().abs().max().clamp(min=1e-30)).item()
+                          for g, w in zip(got[n], want[n]))
+        del rgrads, want, own
+        with unwritten_is_nan():
+            h2, aux2 = ml.mlstm_fwd(*ins, chunk)
+            grads2 = ml.mlstm_bwd(*ins, rh, dh, raux, chunk)
+        repeat = torch.equal(h, h2) and all(
+            torch.equal(a, b) for a, b in zip(aux + grads, aux2 + grads2))
+        del h2, aux2, grads2
+        tol = MLSTM_F32_TOL if dt == f32 else MLSTM_BF16_TOL
+        label = (f"BH={bh} S={s} K={k} chunk={chunk} {str(dt)[6:]} "
+                 f"(floor wins on {floor:.3f} of rows)")
+        print(f"  {label}: " + ", ".join(
+            f"{n} err {errs[n]:.3e} (rel {rels[n]:.2e}, tol {tol:g})"
+            for n in MLSTM) + f", bitwise repeat {repeat}", flush=True)
+        if not repeat or not all(rels[n] <= tol for n in MLSTM):
+            raise SystemExit(f"mLSTM check failed at {label}")
+        if c == XL_MLSTM:
+            results = {n: {"max_abs_err": errs[n]} for n in MLSTM}
+            time_mlstm(ml, results, c, ins, rh, dh, raux)
+        del ins, dh, h, aux, rh, raux, grads, got
+    return results
+
+
+def time_mlstm(ml, results, shape, ins, h, dh, aux):
+    bh, s, k, chunk = shape["bh"], shape["s"], shape["k"], shape["chunk"]
+    q, kk, v, li, lf = ins
+    dq, dk, dv = (torch.empty(bh, s, k, device="cuda") for _ in range(3))
+    dli, dlf = (torch.empty(bh, s, device="cuda") for _ in range(2))
+    dims = (bh, s, k, chunk, 0, k ** -0.5)
+    ptr = lambda *ts: [t.data_ptr() for t in ts]
+    kern = {
+        "mlstm_fwd": lambda: ml.mlstm_fwd(*ins, chunk),
+        "mlstm_bwd_dqdk": lambda: ml.launch(
+            "mlstm_bwd_dqdk", *ptr(q, kk, v, li, lf, h, dh, *aux, dq, dk),
+            *dims, device=q.device),
+        "mlstm_bwd_dv": lambda: ml.launch(
+            "mlstm_bwd_dv", *ptr(q, kk, li, lf, h, dh, *aux[2:], dq, dk, dv,
+                                 dli, dlf), *dims, device=q.device)}
+    plain_fwd = time_ms(lambda: ml.mlstm_fwd_ref(*ins, chunk), 3)
+    # the plain backward computes all five gradients in one pass
+    plain_bwd = time_ms(lambda: ml.mlstm_bwd_ref(*ins, h, dh, aux, chunk),
+                        3)
+    for name, fn in kern.items():
+        r = results[name]
+        r["ms"] = time_ms(fn, 5)
+        r["plain_ms"] = plain_fwd if name == "mlstm_fwd" else plain_bwd
+        # no single PyTorch call computes a chunkwise mLSTM
+        r["library_ms"] = None
+        work = mlstm_work(name, **shape)
+        r["bound_ms"], r["bound_by"] = bound(*work, shape["dtype"])
+        print(f"  {name} at BH={bh} S={s} K={k} chunk={chunk}: "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"none, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+              f"{work[0] / r['ms'] / 1e9:.2f} TFLOP/s", flush=True)
+
+
 def ptxas_summary(log: str):
     """One line per kernel instance: registers, shared memory and spill
     bytes (ptxas prints the spill line of an entry before its register
@@ -475,7 +663,8 @@ def ptxas_summary(log: str):
     name, spills, out = None, "?", []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '.*?"
-                      r"((?:rglru_)?(?:fwd|bwd)(?:_dkdv|_dq)?_kernel|"
+                      r"((?:rglru_|mlstm_)?(?:fwd|bwd)"
+                      r"(?:_dkdv|_dqdk|_dq|_dv)?_kernel|"
                       r"gmm_kernel)I((?:f|13__nv_bfloat16)+)"
                       r"((?:L[ib]\d+E)*)E", line)
         if m:
@@ -496,42 +685,66 @@ def ptxas_summary(log: str):
 
 
 # device-time groups of a step's breakdown, matched in this order
-GROUPS = (("RG-LRU scan kernels", r"rglru_(fwd|bwd)_kernel"),
+GROUPS = (("mLSTM kernels", r"mlstm_(fwd|bwd_dqdk|bwd_dv)_kernel"),
+          ("RG-LRU scan kernels", r"rglru_(fwd|bwd)_kernel"),
           ("attention kernels", r"\bfwd_kernel|bwd_dkdv_kernel|"
                                 r"bwd_dq_kernel"),
           ("grouped matmul kernels", r"gmm_kernel"),
           ("matmul (cuBLAS)", r"gemm|sm90_xmma|cutlass|nvjet"))
-ACTIVITIES = ("CPU", "CUDA")
+# device activity only: the breakdown reads kernels, and a launch-bound
+# step (the sLSTM loop) records millions of host events besides
+ACTIVITIES = ("CUDA",)
 
 
-def breakdown(events, label: str, wall_us: float, step_s: float):
-    """Device time by kernel and by group from the profiler's CUDA
-    events of one step. The idle share is taken against `step_s`, the
-    same step's wall time measured without the profiler (its host
-    overhead stretches the profiled wall, not the kernels)."""
+SMALL_US = 10.0
+SMALL = f"small kernels (< {SMALL_US:g} us each, as the sLSTM's per-step ops)"
+OTHER = "other (elementwise, reductions, copies)"
+
+
+def device_kernels(prof):
+    """(name, microseconds) of every device event of a finished
+    torch.profiler run, read from its raw kineto results: building the
+    profiler's Python event list takes minutes at millions of launches.
+    A scheduled profiler also marks its step on the device's timeline
+    ("ProfilerStep#N"): a span, not a kernel, so it is left out."""
     from torch.autograd import DeviceType
-    by_name = {}
-    for e in events:
-        # a scheduled profiler also marks its step on the device's
-        # timeline ("ProfilerStep#N"): a span, not a kernel
-        if e.device_type == DeviceType.CUDA and \
-                not e.name.startswith("ProfilerStep"):
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us()
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.name().startswith("ProfilerStep")]
+
+
+def breakdown(kernels, label: str, wall_us: float, step_s: float):
+    """Device time by kernel and by group from the (name, us) device
+    events of one step (device_kernels): the named kernel groups first,
+    then any other kernel shorter than SMALL_US (launch-bound work such
+    as the sLSTM recurrence's per-step ops on (heads, batch, 256)
+    tensors), then cuBLAS, then the rest. The idle share is taken
+    against `step_s`, the same step's wall time measured without the
+    profiler (its host overhead stretches the profiled wall, not the
+    kernels)."""
+    by_name, groups = {}, {g: 0.0 for g, _ in GROUPS}
+    groups.update({SMALL: 0.0, OTHER: 0.0})
+    cublas = GROUPS[-1]
+    named = {}                  # kernel name -> its named group, or None
+    for name, us in kernels:
+        by_name[name] = by_name.get(name, 0.0) + us
+        if name not in named:
+            named[name] = next((g for g, pat in GROUPS[:-1]
+                                if re.search(pat, name, re.I)), None)
+        g = named[name]
+        if g is None:
+            g = (SMALL if us < SMALL_US else cublas[0]
+                 if re.search(cublas[1], name, re.I) else OTHER)
+        groups[g] += us
     busy = sum(by_name.values())
     if not busy:
         print("  profiler: no device time recorded; breakdown not "
               "measured", flush=True)
         return
-    groups = {g: 0.0 for g, _ in GROUPS}
-    groups["other (elementwise, reductions, copies)"] = 0.0
-    for n, us in by_name.items():
-        g = next((g for g, pat in GROUPS if re.search(pat, n, re.I)),
-                 "other (elementwise, reductions, copies)")
-        groups[g] += us
-    print(f"  profiled {label}: device busy {busy / 1e3:.1f} ms; "
-          f"wall {wall_us / 1e3:.1f} ms with the profiler on, "
-          f"{step_s * 1e3:.1f} ms without; idle share "
+    print(f"  profiled {label}: device busy {busy / 1e3:.1f} ms over "
+          f"{len(kernels)} device events; wall {wall_us / 1e3:.1f} ms with "
+          f"the profiler on, {step_s * 1e3:.1f} ms without; idle share "
           f"{1 - busy / (step_s * 1e6):.3f}", flush=True)
     for g, us in groups.items():
         print(f"    {g}: {us / 1e3:.1f} ms ({us / busy:.3f} of busy)")
@@ -548,7 +761,7 @@ def profile_step(eng, step_s: float):
                              for a in ACTIVITIES]) as prof:
         eng.train_iteration()
         torch.cuda.synchronize()
-    breakdown(prof.events(), "train_iteration",
+    breakdown(device_kernels(prof), "train_iteration",
               (time.perf_counter() - t0) * 1e6, step_s)
 
 
@@ -592,20 +805,18 @@ def check_reference():
                              f"at {cfg.name}")
 
 
-def check_rg_reference():
+def check_step_reference(cfg, seq: int):
     """make_train_step on the card (kernels) against the CPU (plain
-    versions) for two steps at the reduced RecurrentGemma cut to 5
-    layers (one period and a two-layer rglru tail), window 16 below seq
-    64, f32 parameters: same seed, same weights, same batches."""
-    from repro_torch.configs import recurrentgemma_2b
+    versions) for two steps at `cfg`, batch 2, f32 parameters: same
+    seed, same weights, same batches; losses and grad norms within
+    STEP_REF_TOL."""
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.train import data as data_mod
     from repro_torch.train import step as step_mod
     from repro_torch.train.optimizer import AdamCfg
-    cfg = recurrentgemma_2b.reduced().replace(num_layers=5)
     run = step_mod.RunCfg(adam=AdamCfg(lr=1e-3, warmup_steps=2),
                           param_dtype=torch.float32)
-    stream = data_mod.stream_for(cfg, ShapeCfg("ref", "train", 64, 2))
+    stream = data_mod.stream_for(cfg, ShapeCfg("ref", "train", seq, 2))
     cpu_state = step_mod.init_state(cfg, run, device="cpu")
     states = {"cuda": step_mod.state_to(cpu_state, "cuda"),
               "cpu": cpu_state}
@@ -617,10 +828,11 @@ def check_rg_reference():
             state, st = fn(state, stream.batch(i))
             stats[dev] += [float(st["loss"]), float(st["grad_norm"])]
     diff = max(abs(a - b) for a, b in zip(stats["cuda"], stats["cpu"]))
-    print(f"  {cfg.name} x {cfg.num_layers} layers (loss, grad norm) x 2 "
-          f"steps: cuda {stats['cuda']} cpu {stats['cpu']} max diff "
-          f"{diff:.3e} (tol {RG_REF_TOL:g})", flush=True)
-    if not (all(map(math.isfinite, stats["cuda"])) and diff <= RG_REF_TOL):
+    print(f"  {cfg.name} x {cfg.num_layers} layers, seq {seq} (loss, "
+          f"grad norm) x 2 steps: cuda {stats['cuda']} cpu {stats['cpu']} "
+          f"max diff {diff:.3e} (tol {STEP_REF_TOL:g})", flush=True)
+    if not (all(map(math.isfinite, stats["cuda"]))
+            and diff <= STEP_REF_TOL):
         raise SystemExit("card train step disagrees with the CPU at "
                          f"{cfg.name}")
 
@@ -675,7 +887,8 @@ def expected_launches(cfg, dp: int, moe: bool):
     want = {"flash_fwd": fwd, "flash_bwd_dkdv": bwd, "flash_bwd_dq": bwd}
     products = 3 if moe else 0
     want.update(gmm_fwd=products * fwd, gmm_bwd_dx=products * bwd,
-                gmm_bwd_dw=products * bwd, rglru_fwd=0, rglru_bwd=0)
+                gmm_bwd_dw=products * bwd)
+    want.update({n: 0 for n in SCAN + MLSTM})
     return want
 
 
@@ -704,24 +917,30 @@ def drive(mods, label, cfg, dp, batch, moe, first_loss,
     return launches
 
 
-def rg_expected_launches(cfg, steps: int):
+# the kernels one layer of each type launches (forward, backward) on the
+# launcher's paths
+LAYER_KERNELS = {"rglru": (SCAN[:1], SCAN[1:]),
+                 "local_attn": (FLASH[:1], FLASH[1:]),
+                 "mlstm": (MLSTM[:1], MLSTM[1:])}
+
+
+def launcher_expected_launches(cfg, steps: int):
     """Launches over `steps` train steps with remat: a period's layers
     run forward twice (the forward, then the recompute in the backward),
     tail layers once; every layer runs backward once."""
     from repro_torch.models.backbone import scan_layout
-    period, n_periods, n_tail = scan_layout(cfg)
-    count = lambda t: (n_periods * cfg.block_pattern.count(t),
-                       sum(cfg.block_pattern[i % period] == t
-                           for i in range(n_tail)))
-    (rs, rt), (ls, lt) = count("rglru"), count("local_attn")
-    want = {"rglru_fwd": 2 * rs + rt, "rglru_bwd": rs + rt,
-            "flash_fwd": 2 * ls + lt, "flash_bwd_dkdv": ls + lt,
-            "flash_bwd_dq": ls + lt, "gmm_fwd": 0, "gmm_bwd_dx": 0,
-            "gmm_bwd_dw": 0}
+    period, n_periods, _ = scan_layout(cfg)
+    want = {n: 0 for n in FLASH + GMM + SCAN + MLSTM}
+    for i, t in enumerate(cfg.layer_types()):
+        fwd, bwd = LAYER_KERNELS.get(t, ((), ()))
+        for n in fwd:
+            want[n] += 2 if i < period * n_periods else 1
+        for n in bwd:
+            want[n] += 1
     return {n: steps * c for n, c in want.items()}
 
 
-def run_rg(mods, argv, count: bool):
+def run_launcher(mods, argv, count: bool):
     """The launcher's main over `argv`. With `count`, every kernel's
     launch count is zeroed just before and read just after; without,
     the last step is profiled."""
@@ -733,12 +952,15 @@ def run_rg(mods, argv, count: bool):
     if count:
         for mod in mods:
             mod.reset_launches()
+    steps = int(argv[argv.index("--steps") + 1])
     traces, on_step, prof = [], None, None
     if not count:
         prof = profile(activities=[getattr(ProfilerActivity, a)
                                    for a in ACTIVITIES],
-                       schedule=schedule(wait=2, warmup=0, active=1),
-                       on_trace_ready=lambda p: traces.append(p.events()))
+                       schedule=schedule(wait=steps - 1, warmup=0,
+                                         active=1),
+                       on_trace_ready=lambda p: traces.append(
+                           device_kernels(p)))
         prof.start()
         on_step = lambda step, stats: prof.step()
     t0 = time.perf_counter()
@@ -747,9 +969,9 @@ def run_rg(mods, argv, count: bool):
     if prof is not None:
         prof.stop()
     launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
-    steps = [h["seconds"] for h in hist]
-    print(f"  launcher wall {wall:.2f} s (init, count_params and steps); "
-          f"step wall s {steps}", flush=True)
+    print(f"  launcher wall {wall:.2f} s (init, count_params and steps, "
+          f"profiler included); step wall s "
+          f"{[h['seconds'] for h in hist]}", flush=True)
     print(f"  losses {[h['loss'] for h in hist]}, grad norms "
           f"{[h['grad_norm'] for h in hist]}", flush=True)
     print(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} B",
@@ -757,11 +979,15 @@ def run_rg(mods, argv, count: bool):
     return hist, launches, traces
 
 
-def drive_rg(mods, cfg, argv, steps: int):
-    print(f"[slice] {cfg.name}, {cfg.num_layers} layers, batch 1 seq "
-          f"4096, launcher defaults (bf16 params, remat)", flush=True)
-    hist, launches, _ = run_rg(mods, argv, count=True)
-    want = rg_expected_launches(cfg, steps)
+def drive_launcher(mods, cfg, argv, label):
+    """The launcher twice over `argv` with one seed: counted launches
+    against the config's, then the last step of the second run
+    profiled; losses bitwise equal across the runs."""
+    steps = int(argv[argv.index("--steps") + 1])
+    print(f"[slice] {cfg.name}, {cfg.num_layers} layers, {label}",
+          flush=True)
+    hist, launches, _ = run_launcher(mods, argv, count=True)
+    want = launcher_expected_launches(cfg, steps)
     print(f"  launches in the main path: {launches} (want {want})",
           flush=True)
     losses = [h["loss"] for h in hist]
@@ -770,10 +996,13 @@ def drive_rg(mods, cfg, argv, steps: int):
                          f"{launches} (want {want})")
     print(f"[slice] {cfg.name}: second run, same seed, last step "
           f"profiled", flush=True)
-    again, _, traces = run_rg(mods, argv, count=False)
+    again, _, traces = run_launcher(mods, argv, count=False)
     if traces:
-        breakdown(traces[-1], "train step 3", again[-1]["seconds"] * 1e6,
-                  hist[-1]["seconds"])
+        t0 = time.perf_counter()
+        breakdown(traces[-1], f"train step {steps}",
+                  again[-1]["seconds"] * 1e6, hist[-1]["seconds"])
+        print(f"  (breakdown read in {time.perf_counter() - t0:.1f} s)",
+              flush=True)
     else:
         print("  profiler: no trace recorded; breakdown not measured",
               flush=True)
@@ -791,10 +1020,12 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import qwen2_moe_a2_7b, recurrentgemma_2b
+    from repro_torch.configs import (qwen2_moe_a2_7b, recurrentgemma_2b,
+                                     xlstm_350m)
     from repro_torch.configs.gpt import GPT_MEDIUM
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm as ml
     from repro_torch.kernels import moe_gmm as gm
     from repro_torch.kernels import rglru_scan as rg
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -808,7 +1039,7 @@ def main() -> int:
     libs = _build.libraries()
     print(f"[card] kernel libraries built in {libs.seconds:.2f} s "
           f"(loaded after {time.perf_counter() - t0:.2f} s)", flush=True)
-    for lib in ("flash_attention", "moe_gmm", "rglru_scan"):
+    for lib in _build.SIGNATURES:
         for line in ptxas_summary(libs.log.get(lib, "")):
             print(f"  ptxas: {line}")
 
@@ -816,12 +1047,18 @@ def main() -> int:
     results = check_kernels(fa)
     results.update(check_gmm(gm))
     results.update(check_rglru(rg))
+    results.update(check_mlstm(ml))
 
     print("[reference] card against the CPU", flush=True)
     check_reference()
-    check_rg_reference()
+    # RecurrentGemma: one period and a two-layer rglru tail, window 16
+    # below seq 64; xLSTM: two (mlstm, slstm) periods, seq 200 = three
+    # chunks of 64 and a padded fourth, so the state carries
+    check_step_reference(recurrentgemma_2b.reduced().replace(num_layers=5),
+                         64)
+    check_step_reference(xlstm_350m.reduced().replace(num_layers=4), 200)
 
-    mods = (fa, gm, rg)
+    mods = (fa, gm, rg, ml)
     gpt = GPT_MEDIUM
     launches = drive(mods, f"GPT-medium, {gpt.num_layers} layers, dp=2 "
                      f"pp=2 mb=2 batch 8 seq 2048", gpt, 2, 8, moe=False,
@@ -836,13 +1073,20 @@ def main() -> int:
                          f"weights", qwen, 1, 4, moe=True,
                          first_loss=MOE_FIRST_LOSS,
                          param_dtype=torch.bfloat16)
-    rgc, steps = recurrentgemma_2b.CONFIG, 3
-    rg_launches = drive_rg(mods, rgc, [
-        "--arch", rgc.name, "--steps", str(steps), "--batch", "1",
-        "--seq", "4096", "--log-every", "1", "--device", "cuda"], steps)
-    names = FLASH + GMM + SCAN
+    rgc = recurrentgemma_2b.CONFIG
+    rg_launches = drive_launcher(mods, rgc, [
+        "--arch", rgc.name, "--steps", "3", "--batch", "1", "--seq",
+        "4096", "--log-every", "1", "--device", "cuda"],
+        "batch 1 seq 4096, launcher defaults (bf16 params, remat)")
+    xl = xlstm_350m.CONFIG
+    xl_launches = drive_launcher(mods, xl, [
+        "--arch", xl.name, "--steps", str(XL_STEPS), "--batch", "4",
+        "--seq", str(XL_SEQ), "--log-every", "1", "--device", "cuda"],
+        f"batch 4 seq {XL_SEQ}, launcher defaults (bf16 params, remat)")
+    names = FLASH + GMM + SCAN + MLSTM
     by_path = {n: {gpt.name: launches[n], qwen.name: moe_launches[n],
-                   rgc.name: rg_launches[n]} for n in names}
+                   rgc.name: rg_launches[n], xl.name: xl_launches[n]}
+               for n in names}
 
     print("kernels: " + ", ".join(f"{n} ok" for n in names))
     print(f"whole run {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -24,5 +24,10 @@ def deterministic_cuda() -> None:
     (read when cuBLAS starts, so this runs before the first matmul)."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.use_deterministic_algorithms(True)
+    # deterministic mode also fills every new allocation with NaN (a
+    # check for reads of memory never written, not a condition of
+    # repeatability): one extra kernel per op, which doubles the launches
+    # of launch-bound loops such as the sLSTM's
+    torch.utils.deterministic.fill_uninitialized_memory = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

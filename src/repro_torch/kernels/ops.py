@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mlstm as _ml
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import rglru_scan as _rg
 
@@ -34,3 +35,11 @@ def rglru_scan(a, x):
     kernels (plain version for CPU tensors), with an f32 carry and h in
     x's dtype. Differentiable."""
     return _rg.rglru_scan(a, x)
+
+
+def mlstm_chunkwise(q, k, v, log_i, log_f, *, chunk=64):
+    """Chunkwise stabilized mLSTM from the zero state through the CUDA
+    kernels (plain version for CPU tensors): q, k, v (BH, S, K), log_i,
+    log_f (BH, S) -> h (BH, S, K) in q's dtype, with chunk = min(chunk,
+    S) dividing S, as the reference asserts. Differentiable."""
+    return _ml.mlstm_chunkwise(q, k, v, log_i, log_f, min(chunk, q.shape[1]))

@@ -3,7 +3,9 @@
   attention (sliding-window for `local_attn`) -> output projection, then
   RMSNorm -> SwiGLU MLP, or the MoE FFN for `attn_moe` (models/moe.py);
 - `rglru`: RMSNorm -> RG-LRU temporal mixing (models/rglru.py), then
-  RMSNorm -> SwiGLU MLP.
+  RMSNorm -> SwiGLU MLP;
+- `mlstm` and `slstm`: RMSNorm -> the xLSTM cell with its own up and
+  down projections (models/xlstm.py), then the residual.
 There is no mesh, so the reference's `shard()` constraints have no
 counterpart. The other block types raise NotImplementedError.
 """
@@ -15,6 +17,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.tp_padding import HeadPlan, plan_heads
 
 ATTN_TYPES = ("attn", "local_attn", "attn_moe")
@@ -23,16 +26,17 @@ _NOT_PORTED = {
     "mla_moe": "ROADMAP Queue 1 item 10 (DeepSeek-V2-Lite)",
     "attn_cross": "ROADMAP Queue 1 item 10 (Whisper)",
     "enc_attn": "ROADMAP Queue 1 item 10 (Whisper)",
-    "mlstm": "ROADMAP Queue 1 item 10 and Queue 2 item 4 (xLSTM-350M)",
-    "slstm": "ROADMAP Queue 1 item 10 (xLSTM-350M)",
 }
+# the xLSTM block types: (init, apply) of their cell
+XLSTM = {"mlstm": (xlstm_mod.init_mlstm, xlstm_mod.apply_mlstm),
+         "slstm": (xlstm_mod.init_slstm, xlstm_mod.apply_slstm)}
 
 
 def _refuse(btype: str):
     if btype in _NOT_PORTED:
         raise NotImplementedError(f"block type {btype!r} is not ported "
                                   f"yet: {_NOT_PORTED[btype]}")
-    if btype not in ATTN_TYPES + ("rglru",):
+    if btype not in ATTN_TYPES + ("rglru",) + tuple(XLSTM):
         raise ValueError(btype)
 
 
@@ -136,6 +140,9 @@ def init_block(gen, btype: str, cfg: ArchConfig, tp: int, dtype,
     _refuse(btype)
     d = cfg.d_model
     ones = lambda: torch.ones((d,), dtype=dtype, device=device)
+    if btype in XLSTM:
+        return {"ln1": ones(),
+                "cell": XLSTM[btype][0](gen, cfg, dtype, device)}
     if btype == "rglru":
         return {"ln1": ones(),
                 "rnn": rglru_mod.init_rglru(gen, cfg, dtype, device),
@@ -155,6 +162,10 @@ def apply_block(btype: str, p: dict, x, cfg: ArchConfig, tp: int, *,
     """Training/prefill path. Returns (x, aux_loss)."""
     _refuse(btype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if btype in XLSTM:
+        h, _ = XLSTM[btype][1](p["cell"], rmsnorm(x, p["ln1"], cfg.norm_eps),
+                               cfg)
+        return x + h, aux
     if btype == "rglru":
         h, _ = rglru_mod.apply_rglru(p["rnn"],
                                      rmsnorm(x, p["ln1"], cfg.norm_eps), cfg)

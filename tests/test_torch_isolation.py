@@ -23,7 +23,7 @@ for n in names:
 bad = sorted(m for m in sys.modules if m == "repro" or
              m.startswith("repro."))
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -32,7 +32,11 @@ def test_port_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    names = out.stdout.split()
+    assert len(names) >= 20
+    for mod in ("repro_torch.kernels.mlstm", "repro_torch.models.xlstm",
+                "repro_torch.kernels.rglru_scan", "repro_torch.launch.train"):
+        assert mod in names, mod
 
 
 @pytest.mark.parametrize("path", sorted(
