@@ -3,7 +3,10 @@
     python3 chip_smoke.py
 
 Phases (each failure exits non-zero):
-  1. card: name and power limit, torch and CUDA versions, kernel build;
+  1. card: name and power limit, torch and CUDA versions, kernel build,
+     each kernel instance's registers and spills (ptxas); every attention
+     backward instance must issue tensor-core instructions (HMMA in its
+     SASS) and spill nothing;
   2. kernels: every CUDA kernel of the main paths against its plain
      PyTorch version on the card (tolerances below; the kernels' outputs
      are allocated filled with NaN, so one left unwritten fails),
@@ -86,9 +89,13 @@ STEP_REF_TOL = 1e-4
 # first losses of the GPT-medium and Qwen MoE slices with the d <= 128
 # attention kernels as they were before the window and d = 256 came in
 GPT_FIRST_LOSS, MOE_FIRST_LOSS = 11.067411184310913, 12.318589687347412
-# H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor
-# cores, bf16 tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# H100 SXM peaks (NVIDIA data sheet, dense), HBM3 bandwidth. f32: the
+# TF32 tensor-core rate of 495 TFLOP/s over the three products that keep
+# f32 accuracy (3xTF32, as the attention backward runs), the card's
+# fastest route at f32 accuracy; the 67 TFLOP/s of the CUDA cores would
+# be a bound that such a kernel can beat, which is no bound. bf16: the
+# tensor cores.
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 # the main paths' attention: micro-batch 2, seq 2048; GPT-medium 16 x 64
 # heads (timed for the JSON line), Qwen1.5-MoE 16 x 128 heads
@@ -189,12 +196,13 @@ def attention_work(name, bh, s, d, dtype, causal, window):
     pairs = bh * visible_pairs(s, causal, window)
     el = torch.tensor([], dtype=dtype).element_size()
     tile = bh * s * d * el
-    lse = bh * s * 4
+    row = bh * s * 4                 # one f32 value a row: lse, delta
     if name == "flash_fwd":          # QK^T, PV; reads q,k,v; writes o,lse
-        return 4 * d * pairs, 3 * tile + tile + lse
-    if name == "flash_bwd_dkdv":     # S, dP, dV, dK; reads q,k,v,o,dO,lse
-        return 8 * d * pairs + 2 * bh * s * d, 5 * tile + lse + 2 * tile
-    return 6 * d * pairs + 2 * bh * s * d, 5 * tile + lse + tile   # dq
+        return 4 * d * pairs, 3 * tile + tile + row
+    if name == "flash_bwd_dkdv":     # S, dP, dV, dK; reads q,k,v,dO,lse,D
+        return 8 * d * pairs, 4 * tile + 2 * row + 2 * tile
+    # dq: D = rowsum(dO O), S, dP, dQ; reads q,k,v,o,dO,lse; writes dq,D
+    return 6 * d * pairs + 2 * bh * s * d, 5 * tile + row + tile + row
 
 
 def gmm_work(e, m, k, n, dtype):
@@ -217,6 +225,7 @@ def check_kernels(fa):
     GPT-shape results by kernel name, each with the times at every
     path's shape under "shapes"."""
     f32 = dict(dtype=torch.float32, window=0)
+    bf16 = dict(dtype=torch.bfloat16, window=0)
     cases = [dict(SLICE),
              dict(bh=8, s=256, d=16, causal=True, **f32),
              dict(bh=8, s=256, d=32, causal=True, **f32),
@@ -236,7 +245,26 @@ def check_kernels(fa):
              dict(bh=4, s=130, d=64, causal=True, dtype=torch.float32,
                   window=50),
              dict(RG_ATTN, dtype=torch.float32),
-             dict(RG_ATTN)]
+             dict(RG_ATTN),
+             # the backward's tile edges: bf16 with S no multiple of 64
+             # (nor of the 32-row walked tiles at d 128), S below one
+             # tile, windows no multiple of the tile at d 64 and 128
+             dict(bh=3, s=130, d=16, causal=True, **bf16),
+             dict(bh=3, s=77, d=32, causal=True, **bf16),
+             dict(bh=2, s=130, d=128, causal=True, **bf16),
+             dict(bh=2, s=77, d=128, causal=True, **bf16),
+             dict(bh=4, s=20, d=64, causal=True, **f32),
+             dict(bh=4, s=12, d=128, causal=False, **f32),
+             dict(bh=4, s=20, d=64, causal=True, **bf16),
+             dict(bh=2, s=10, d=256, causal=True, **bf16),
+             dict(bh=3, s=300, d=128, causal=True, dtype=torch.float32,
+                  window=70),
+             dict(bh=3, s=300, d=128, causal=True, dtype=torch.bfloat16,
+                  window=70),
+             dict(bh=3, s=250, d=64, causal=True, dtype=torch.bfloat16,
+                  window=45),
+             dict(bh=2, s=200, d=128, causal=False, dtype=torch.float32,
+                  window=90)]
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results, shapes = {}, {n: [] for n in FLASH}
     for c in cases:
@@ -247,13 +275,18 @@ def check_kernels(fa):
         sc = d ** -0.5
         with unwritten_is_nan():
             o, lse = fa.flash_fwd(q, k, v, causal, sc, win)
-            grads = fa.flash_bwd(q, k, v, o, lse, do, causal, sc, win)
+            *grads, delta = fa.flash_bwd(q, k, v, o, lse, do, causal, sc,
+                                         win)
         torch.cuda.synchronize()
         ro, rlse = fa.attention_fwd_ref(q, k, v, causal, sc, win)
         rgrads = fa.attention_bwd_ref(q, k, v, o, lse, do, causal, sc, win)
         err = lambda a, b: (a.float() - b.float()).abs().max().item()
         rel = lambda a, b: err(a, b) / max(b.float().abs().max().item(),
                                            1e-30)
+        # D = rowsum(dO * O) as flash_bwd_dq wrote it, against the plain
+        # f32 sum, relative to its largest value (sums of up to 256 f32
+        # products in two orders)
+        delta_rel = rel(delta, (do.float() * o.float()).sum(-1))
         pairs = {"flash_fwd": ((o, ro), (lse, rlse)),
                  "flash_bwd_dkdv": ((grads[1], rgrads[1]),
                                     (grads[2], rgrads[2])),
@@ -266,21 +299,22 @@ def check_kernels(fa):
             o2, lse2 = fa.flash_fwd(q, k, v, causal, sc, win)
             grads2 = fa.flash_bwd(q, k, v, o, lse, do, causal, sc, win)
         repeat = torch.equal(o, o2) and torch.equal(lse, lse2) and all(
-            torch.equal(a, b) for a, b in zip(grads, grads2))
+            torch.equal(a, b) for a, b in zip(grads + [delta], grads2))
         f32 = dt == torch.float32
         tols = {"flash_fwd": F32_FWD_TOL if f32 else BF16_TOL,
                 "flash_bwd_dkdv": F32_GRAD_TOL if f32 else BF16_TOL,
                 "flash_bwd_dq": F32_GRAD_TOL if f32 else BF16_TOL}
         rel_tol = math.inf if f32 else BF16_REL_TOL
-        ok = repeat and all(errs[n] <= tols[n] and rels[n] <= rel_tol
-                            for n in FLASH)
+        ok = repeat and delta_rel <= F32_FWD_TOL and all(
+            errs[n] <= tols[n] and rels[n] <= rel_tol for n in FLASH)
         label = (f"bh={bh} s={s} d={d} {str(dt)[6:]} "
                  f"{'causal' if causal else 'full'}"
                  + (f" window={win}" if win else ""))
         print(f"  {label}: " + ", ".join(
             f"{n} err {errs[n]:.3e} (tol {tols[n]:g}; rel {rels[n]:.2e}, "
             f"tol {rel_tol:g})" for n in FLASH)
-            + f", bitwise repeat {repeat}", flush=True)
+            + f", delta rel {delta_rel:.2e} (tol {F32_FWD_TOL:g}), bitwise "
+            f"repeat {repeat}", flush=True)
         if not ok:
             raise SystemExit(f"kernel check failed at {label}")
         if c in (SLICE, MOE_ATTN, RG_ATTN):
@@ -290,7 +324,7 @@ def check_kernels(fa):
                 shapes[n].append({"shape": label, **timed[n]})
             if c == SLICE:
                 results = timed
-        del q, k, v, do, o, lse, grads, o2, lse2, grads2
+        del q, k, v, do, o, lse, grads, delta, o2, lse2, grads2
     for n in FLASH:
         results[n]["shapes"] = shapes[n]
     return results
@@ -299,18 +333,19 @@ def check_kernels(fa):
 def time_attention(fa, results, shape, q, k, v, do, o, lse, sc):
     causal, win, reps = shape["causal"], shape["window"], 10
     fwd = lambda: fa.flash_fwd(q, k, v, causal, sc, win)
-    dkdv_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), do.data_ptr())
-    dk, dv, dq = (torch.empty_like(q) for _ in range(3))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     common = (shape["bh"], shape["s"], shape["d"],
               0 if shape["dtype"] == torch.float32 else 1, int(causal),
               win, sc)
+    ptr = lambda *ts: [t.data_ptr() for t in ts]
     results["flash_fwd"]["ms"] = time_ms(fwd, reps)
-    results["flash_bwd_dkdv"]["ms"] = time_ms(lambda: fa.launch(
-        "flash_bwd_dkdv", *dkdv_args, dk.data_ptr(), dv.data_ptr(),
-        *common, device=q.device), reps)
+    # in the order flash_bwd runs them: dq writes the delta dkdv reads
     results["flash_bwd_dq"]["ms"] = time_ms(lambda: fa.launch(
-        "flash_bwd_dq", *dkdv_args, dq.data_ptr(), *common,
+        "flash_bwd_dq", *ptr(q, k, v, o, lse, do, dq, delta), *common,
+        device=q.device), reps)
+    results["flash_bwd_dkdv"]["ms"] = time_ms(lambda: fa.launch(
+        "flash_bwd_dkdv", *ptr(q, k, v, delta, lse, do, dk, dv), *common,
         device=q.device), reps)
     results["flash_fwd"]["plain_ms"] = time_ms(
         lambda: fa.attention_fwd_ref(q, k, v, causal, sc, win), reps)
@@ -347,6 +382,10 @@ def time_attention(fa, results, shape, q, k, v, do, o, lse, sc):
               f"{results[n]['library_ms']:.4f} ms, bound "
               f"{results[n]['bound_ms']:.4f} ms ({results[n]['bound_by']})",
               flush=True)
+    pair = results["flash_bwd_dq"]["ms"] + results["flash_bwd_dkdv"]["ms"]
+    print(f"  backward pair at d={shape['d']}: flash_bwd_dq + "
+          f"flash_bwd_dkdv {pair:.4f} ms, SDPA backward {lib_bwd:.4f} ms, "
+          f"ratio {pair / lib_bwd:.3f}", flush=True)
 
 
 def check_gmm(gm):
@@ -656,32 +695,59 @@ def time_mlstm(ml, results, shape, ins, h, dh, aux):
               f"{work[0] / r['ms'] / 1e9:.2f} TFLOP/s", flush=True)
 
 
+KERNEL_RE = re.compile(r"((?:rglru_|mlstm_)?(?:fwd|bwd)"
+                       r"(?:_dkdv|_dqdk|_dq|_dv)?_kernel|gmm_kernel)"
+                       r"I((?:f|13__nv_bfloat16)+)((?:L[ib]\d+E)*)E")
+
+
+def instance_name(mangled: str):
+    """`kernel<dtypes, template ints>` of a mangled kernel instance, or
+    None for any other symbol."""
+    m = KERNEL_RE.search(mangled)
+    if not m:
+        return None
+    dts = ["f32" if t == "f" else "bf16" for t in
+           re.findall(r"f|13__nv_bfloat16", m.group(2))]
+    args = re.findall(r"L[ib](\d+)E", m.group(3))
+    return f"{m.group(1)}<{', '.join(dts + args)}>"
+
+
 def ptxas_summary(log: str):
-    """One line per kernel instance: registers, shared memory and spill
-    bytes (ptxas prints the spill line of an entry before its register
-    count)."""
-    name, spills, out = None, "?", []
+    """(name, spill bytes, line) per kernel instance: ptxas prints the
+    spill line of an entry before its register count."""
+    name, spills, out = None, (0, 0), []
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?"
-                      r"((?:rglru_|mlstm_)?(?:fwd|bwd)"
-                      r"(?:_dkdv|_dqdk|_dq|_dv)?_kernel|"
-                      r"gmm_kernel)I((?:f|13__nv_bfloat16)+)"
-                      r"((?:L[ib]\d+E)*)E", line)
-        if m:
-            dts = ["f32" if t == "f" else "bf16" for t in
-                   re.findall(r"f|13__nv_bfloat16", m.group(2))]
-            args = re.findall(r"L[ib](\d+)E", m.group(3))
-            name = f"{m.group(1)}<{', '.join(dts + args)}>"
+        if "Compiling entry function" in line:
+            name = instance_name(line)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
-            spills = f"{m.group(1)}/{m.group(2)} B"
+            spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers(.*)", line)
         if m and name:
-            out.append(f"{name}: {m.group(1)} registers{m.group(2)}, "
-                       f"spill stores/loads {spills}")
-            name = None
+            out.append((name, sum(spills),
+                        f"{name}: {m.group(1)} registers{m.group(2)}, "
+                        f"spill stores/loads {spills[0]}/{spills[1]} B"))
+            name, spills = None, (0, 0)
     return out
+
+
+def hmma_counts(lib: Path):
+    """Tensor-core instructions (HMMA) per kernel instance in the SASS of
+    a built library (cuobjdump --dump-sass)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    sass = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"),
+                           "--dump-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = instance_name(line)
+            if name:
+                counts[name] = 0
+        elif name and re.search(r"\bHMMA\b", line):
+            counts[name] += 1
+    return counts
 
 
 # device-time groups of a step's breakdown, matched in this order
@@ -1040,8 +1106,21 @@ def main() -> int:
     print(f"[card] kernel libraries built in {libs.seconds:.2f} s "
           f"(loaded after {time.perf_counter() - t0:.2f} s)", flush=True)
     for lib in _build.SIGNATURES:
-        for line in ptxas_summary(libs.log.get(lib, "")):
+        for _, _, line in ptxas_summary(libs.log.get(lib, "")):
             print(f"  ptxas: {line}")
+    # the attention backward is built for the tensor cores: every instance
+    # issues HMMA and none spills
+    hmma = hmma_counts(_build._target("flash_attention"))
+    bwd = {n: c for n, c in hmma.items() if n.startswith("bwd_")}
+    for n, c in sorted(bwd.items()):
+        print(f"  sass: {n}: {c} HMMA")
+    spilled = [n for n, sp, _ in ptxas_summary(
+        libs.log.get("flash_attention", "")) if n.startswith("bwd_") and sp]
+    # two kernels for each head dim and dtype
+    if len(bwd) != 2 * len(fa.HEAD_DIMS) * len(fa._DTYPE_CODE) or \
+            not all(bwd.values()) or spilled:
+        raise SystemExit(f"attention backward: HMMA counts {bwd}, "
+                         f"spilling {spilled}")
 
     print("[kernels] against the plain versions", flush=True)
     results = check_kernels(fa)

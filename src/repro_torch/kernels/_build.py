@@ -29,12 +29,12 @@ SIGNATURES = {
     "flash_attention": {
         # q, k, v, o, lse, bh, s, d, dtype, causal, window, scale, stream
         "flash_fwd": [P, P, P, P, P, I, I, I, I, I, I, F, P],
-        # q, k, v, o, lse, dout, dk, dv, bh, s, d, dtype, causal, window,
-        # scale, stream
+        # q, k, v, delta, lse, dout, dk, dv, bh, s, d, dtype, causal,
+        # window, scale, stream
         "flash_bwd_dkdv": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
-        # q, k, v, o, lse, dout, dq, bh, s, d, dtype, causal, window,
-        # scale, stream
-        "flash_bwd_dq": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+        # q, k, v, o, lse, dout, dq, delta, bh, s, d, dtype, causal,
+        # window, scale, stream
+        "flash_bwd_dq": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
     },
     "moe_gmm": {
         # x, w, y, e, m, k, n, dtype, stream

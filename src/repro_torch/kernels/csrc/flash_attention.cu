@@ -13,13 +13,16 @@
 //                   causal and wholly below the window. Writes o (input
 //                   dtype) and lse = m + log(max(l, 1e-30)) (f32,
 //                   (BH, S)).
-//   flash_bwd_dkdv  one block per (kv tile, bh); loops over q tiles
-//                   (skipping those wholly above the window),
-//                   recomputing P = exp(S*scale - lse) and
-//                   D_i = rowsum(dO_i * O_i); dV += P^T dO,
-//                   dK += scale * dS^T Q with dS = P * (dO V^T - D).
-//   flash_bwd_dq    one block per (q tile, bh); loops over kv tiles as
-//                   the forward does; dQ += scale * dS K.
+//   flash_bwd_dq    runs first: one block per (bh, q tile), the last
+//                   (heaviest causal) q tiles issued first. Computes
+//                   D_i = rowsum(dO_i * O_i) once for its rows and writes
+//                   it to `delta` (f32, (BH, S)), then loops over the kv
+//                   tiles its rows see: S = Q K^T, dP = dO V^T,
+//                   P = exp(S*scale - lse), dS = P * (dP - D),
+//                   dQ += scale * dS K.
+//   flash_bwd_dkdv  one block per (bh, kv tile); loops over the q tiles
+//                   that see it, reading lse and D (not O): S^T = K Q^T,
+//                   dP^T = V dO^T, dV += P^T dO, dK += scale * dS^T Q.
 //
 // Mask: key k is visible to query q when k < S, k <= q (causal) and
 // q - k < window (window > 0), the reference's sliding window
@@ -29,37 +32,72 @@
 // results repeat bitwise from run to run.
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are contiguous (BH, S, D); f32 or
-// bf16, computed in f32. D is a template parameter (16, 32, 64, 128,
-// 256), and so is the tile size BQ (q rows = kv rows per tile): 64 for
-// D <= 128, 32 for D = 256, where 64-row tiles would need more shared
-// memory than a block may have in both backward kernels (300,032 and
-// 283,392 B against 232,448) and 128 accumulator registers a thread in
-// the forward. Each of the 128 threads owns a BQ/16 x BQ/8 tile of
-// scores and BQ/16 rows of the accumulator, so the D <= 128 instances
-// run exactly the arithmetic they ran before the template grew. S need
-// not be a multiple of BQ: the ragged edge is masked (rows >= S load as
-// zero, their scores are masked and their outputs are not written), so
-// the reference's "blocks divide S" contract is relaxed rather than
-// kept.
+// bf16, computed in f32; D is a template parameter (16, 32, 64, 128,
+// 256). S need not be a multiple of any tile: rows >= S load as zero,
+// their scores are masked and their outputs are not written, so the
+// reference's "blocks divide S" contract is relaxed rather than kept.
 //
 // What bounds it on an H100: at the main paths' shapes (BH 32, S 2048,
-// D 64, causal; BH 10, S 4096, D 256, window 2048) the work is 17 and
-// 64 GFLOP forward per call against 25 and 84 MB of inputs and outputs,
-// far above the card's bytes-to-FLOP line, so the bound is arithmetic.
-// This first version does the two products with plain f32 FMA loops
-// over shared-memory tiles (each thread a BQ/16 x BQ/8 register tile of
-// scores and a BQ/16 x D/8 tile of the accumulator), so it runs at
-// CUDA-core f32 rate at best; tensor cores (wgmma on bf16) are the next
-// step. Shared-memory tiles are stored transposed with a stride of
-// BQ + 1 floats so that every access pattern below is free of bank
-// conflicts (or a broadcast).
+// D 64 and 128, f32, causal; BH 10, S 4096, D 256, bf16, window 2048)
+// the work is 4 D FLOPs per visible (q, k) pair forward and 14 D
+// backward against a few hundred bytes per row, far above the card's
+// bytes-to-FLOP line, so the bound is arithmetic.
+//
+// The forward does its two products with plain f32 FMA loops over
+// shared-memory tiles (BQ = 64 rows for D <= 128, 32 for D = 256; each of
+// 128 threads a BQ/16 x BQ/8 register tile of scores and a BQ/16 x D/8
+// tile of the accumulator), stored transposed with a stride of BQ + 1
+// floats so that every access is free of bank conflicts; it runs at
+// CUDA-core rate at best.
+//
+// The backward runs every product on the tensor cores through warp-level
+// mma.sync, accumulating in f32:
+//  - bf16: m16n8k16 on bf16 operands, which stay bf16 in shared memory.
+//    P and dS, the A operands of the dV, dK and dQ products, are split
+//    into a bf16 high and low part, two products each: rounded to bf16
+//    once, they moved outputs above 4 by a bf16 step there (2^-5), past
+//    the check's 2e-2.
+//  - f32: three m16n8k8 TF32 products a step (3xTF32). Each operand x is
+//    split in registers as it is loaded, big = tf32(x) and small = x -
+//    big, and big*small + small*big + big*big keeps close to f32
+//    accuracy, where one TF32 product keeps about 10 bits. Shared memory
+//    holds f32. The card's TF32 rate over three is its fastest route at
+//    f32 accuracy: 165 TFLOP/s, against 67 on the CUDA cores.
+//  - The tensor cores truncate each product's sum into their
+//    accumulator, a bias that grows with the number of sums: over all of
+//    a sequence's rows into one accumulator it moved dV past the f32
+//    check's 1e-4 at d 128, S 2048. So dV, dK and dQ sum each walked
+//    tile into a fresh accumulator and add that to the running one in
+//    f32, rounding to nearest.
+// A warp owns 16 rows of the block's own tile (q rows in dq, kv rows in
+// dkdv), so the score products put those rows in the MMA's M dimension
+// (S^T = K Q^T in dkdv) and the accumulator of S is already the A operand
+// of the product that follows: in bf16 two n8 accumulators pack into one
+// k16 A fragment; in TF32 the accumulator's columns (2t, 2t + 1) serve as
+// the A fragment's k = (t, t + 4), and B is read from the matching rows.
+// Where dK and dV outgrow a thread's registers (2 x 16 x 256 f32 a warp
+// at D = 256), WD = 2 warps share each 16 rows, each computes S and dP
+// for half of the walked columns and owns half of the output columns,
+// and P and dS pass through shared memory between them. Tiles and warps
+// per instance are in bwd_tiles(): 64-row own tiles and 4 warps up to
+// D = 64, 8 warps above, walked tiles of 16 to 64 rows as the registers
+// allow.
+// The walked tiles (Q, dO, lse, D in dkdv; K, V in dq) come in by
+// cp.async into a ring of two stages, so the next tile's copy runs under
+// the current tile's products; the block's own tiles load once, and rows
+// at or beyond S arrive as zeros. Shared-memory rows are padded by 16
+// bytes, so ldmatrix and the scalar TF32 fragment loads are free of bank
+// conflicts. Only tiles that cross the diagonal, the window's edge or S
+// are masked element by element; tiles wholly outside are skipped.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int NT = 128;         // threads per block: 16 row groups x 8
+constexpr int NT = 128;         // forward threads per block: 16 x 8
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -101,28 +139,6 @@ __device__ __forceinline__ void load_t(float* t, const T* g, int r0,
     t[d * LD + r] = row < S ? to_f(g[(size_t)row * D + d]) : 0.f;
   }
 }
-
-// lse and D_i = rowsum(dO * O) for the BQ q rows of a tile, NT / BQ
-// threads per row (dO from its transposed tile, O from device memory).
-template <typename T, int D, int BQ>
-__device__ __forceinline__ void load_lse_delta(
-    float* Ls, float* Ds, const float* dOt, const T* o, const float* lse,
-    int q0, int S) {
-  constexpr int LD = BQ + 1, TPR = NT / BQ;
-  const int r = threadIdx.x / TPR, h = threadIdx.x % TPR, row = q0 + r;
-  float acc = 0.f;
-  if (row < S)
-    for (int d = h; d < D; d += TPR)
-      acc += to_f(o[(size_t)row * D + d]) * dOt[d * LD + r];
-#pragma unroll
-  for (int off = 1; off < TPR; off <<= 1)
-    acc += __shfl_xor_sync(FULL, acc, off);
-  if (h == 0) {
-    Ds[r] = acc;
-    Ls[r] = row < S ? lse[row] : 0.f;
-  }
-}
-
 
 template <typename T, int D, int BQ>
 __global__ void __launch_bounds__(NT)
@@ -232,216 +248,555 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, int BQ>
-__global__ void __launch_bounds__(NT)
-bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ o,
-                const float* __restrict__ lse, const T* __restrict__ dout,
-                T* __restrict__ dk, T* __restrict__ dv, int S, int causal,
-                int window, float scale) {
-  constexpr int DC = D / 8, LD = BQ + 1, RQ = BQ / 16, CK = BQ / 8;
-  extern __shared__ float sm[];
-  float* Kt = sm;
-  float* Vt = Kt + D * LD;
-  float* Qt = Vt + D * LD;
-  float* dOt = Qt + D * LD;
-  float* Ps = dOt + D * LD;                // Ps[q * LD + kr]
-  float* dSs = Ps + BQ * LD;               // dSs[q * LD + kr]
-  float* Ls = dSs + BQ * LD;
-  float* Ds = Ls + BQ;
-  const int bh = blockIdx.y, kt = blockIdx.x, k0 = kt * BQ;
-  const size_t base = (size_t)bh * S * D;
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+// ---------------------------------------------------------------- backward
 
-  load_t<T, D, BQ>(Kt, k + base, k0, S);
-  load_t<T, D, BQ>(Vt, v + base, k0, S);
-  float gk[RQ][DC], gv[RQ][DC];
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device memory into shared memory, or 16 zero bytes.
+__device__ __forceinline__ void cp_async16(void* s, const void* g, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(s)),
+               "l"(g), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from device memory into shared memory, or 4 zero bytes.
+__device__ __forceinline__ void cp_async4(void* s, const void* g, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(s)),
+               "l"(g), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's copy groups are in flight.
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Fragments of one warp-level product: A is 16 x k, B k x 8, with k = 16
+// (bf16, m16n8k16) or 8 (TF32, m16n8k8; held as big and small parts).
+template <typename T> struct FragA;
+template <> struct FragA<__nv_bfloat16> { uint32_t x[4]; };
+template <> struct FragA<float> { uint32_t hi[4], lo[4]; };
+template <typename T> struct FragB;
+template <> struct FragB<__nv_bfloat16> { uint32_t x[2]; };
+template <> struct FragB<float> { uint32_t hi[2], lo[2]; };
+
+// x = big + small: big = tf32(x) rounded to nearest, small = x - big
+// exactly in f32 (|small| <= 2^-11 |x|), which the tensor cores read to
+// TF32 precision by dropping its low 13 bits, an error of at most 2^-21
+// |x| in a product's small term.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ FragA<float> frag_a_tf32(float a0, float a1,
+                                                    float a2, float a3) {
+  FragA<float> f;
+  split_tf32(a0, f.hi[0], f.lo[0]);
+  split_tf32(a1, f.hi[1], f.lo[1]);
+  split_tf32(a2, f.hi[2], f.lo[2]);
+  split_tf32(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+
+// A fragment as ldmatrix.x4 leaves it (16 rows x 32 bytes).
+template <typename T> __device__ __forceinline__ FragA<T> frag_a_raw(
+    const uint32_t (&r)[4]);
+template <> __device__ __forceinline__ FragA<__nv_bfloat16>
+frag_a_raw<__nv_bfloat16>(const uint32_t (&r)[4]) {
+  return {{r[0], r[1], r[2], r[3]}};
+}
+template <> __device__ __forceinline__ FragA<float> frag_a_raw<float>(
+    const uint32_t (&r)[4]) {
+  return frag_a_tf32(__uint_as_float(r[0]), __uint_as_float(r[1]),
+                     __uint_as_float(r[2]), __uint_as_float(r[3]));
+}
+
+template <typename T> __device__ __forceinline__ FragB<T> frag_b_raw(
+    uint32_t b0, uint32_t b1);
+template <> __device__ __forceinline__ FragB<__nv_bfloat16>
+frag_b_raw<__nv_bfloat16>(uint32_t b0, uint32_t b1) {
+  return {{b0, b1}};
+}
+template <> __device__ __forceinline__ FragB<float> frag_b_raw<float>(
+    uint32_t b0, uint32_t b1) {
+  FragB<float> f;
+  split_tf32(__uint_as_float(b0), f.hi[0], f.lo[0]);
+  split_tf32(__uint_as_float(b1), f.hi[1], f.lo[1]);
+  return f;
+}
+
+__device__ __forceinline__ void mma_op(float (&c)[4],
+                                       const FragA<__nv_bfloat16>& a,
+                                       const FragB<__nv_bfloat16>& b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x[0]), "r"(a.x[1]), "r"(a.x[2]), "r"(a.x[3]), "r"(b.x[0]),
+        "r"(b.x[1]));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32: the small cross terms first, then big * big.
+__device__ __forceinline__ void mma_op(float (&c)[4], const FragA<float>& a,
+                                       const FragB<float>& b) {
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+// acc[NC / 8][4] = X Y^T over D for one warp: X its 16 rows of the own
+// tile (at xs), Y NC rows of the walked tile (at ys), rows LD elements
+// apart in shared memory. Accumulator layout of m16n8: acc[j][e] is row
+// g + 8 * (e / 2), column 8 j + 2 t + e % 2, with g = lane / 4 and
+// t = lane % 4. Each ldmatrix.x4 reads 32 bytes of k: one k step of
+// either product (16 bf16 or 8 f32).
+template <typename T, int D, int LD, int NC>
+__device__ __forceinline__ void score(float (&acc)[NC / 8][4], const T* xs,
+                                      const T* ys, int lane) {
+  constexpr int ROW = LD * (int)sizeof(T), KSTEPS = D * (int)sizeof(T) / 32;
+  const uint32_t xa = smem_u32(xs) + (lane & 15) * ROW + (lane >> 4) * 16;
+  const uint32_t ya = smem_u32(ys) +
+                      ((lane & 7) + ((lane >> 4) << 3)) * ROW +
+                      ((lane >> 3) & 1) * 16;
 #pragma unroll
-  for (int i = 0; i < RQ; ++i)
+  for (int j = 0; j < NC / 8; ++j)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) gk[i][c] = gv[i][c] = 0.f;
-  const int n_q = (S + BQ - 1) / BQ;
-  // the last query that sees a key of this tile is k0 + BQ - 2 + window
-  const int q_end = window ? min(n_q, (k0 + BQ - 2 + window) / BQ + 1)
-                           : n_q;
-  for (int qt = causal ? kt : 0; qt < q_end; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();
-    load_t<T, D, BQ>(Qt, q + base, q0, S);
-    load_t<T, D, BQ>(dOt, dout + base, q0, S);
-    __syncthreads();
-    load_lse_delta<T, D, BQ>(Ls, Ds, dOt, o + base, lse + (size_t)bh * S,
-                             q0, S);
-    __syncthreads();
-    float s[RQ][CK], dp[RQ][CK];
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    uint32_t r[4];
+    ldsm_x4(r, xa + kk * 32);
+    const FragA<T> a = frag_a_raw<T>(r);
 #pragma unroll
-      for (int j = 0; j < CK; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      float a[RQ], av[RQ], b[CK], bo[CK];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        a[i] = Kt[d * LD + ty * RQ + i];
-        av[i] = Vt[d * LD + ty * RQ + i];
-      }
-#pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        b[j] = Qt[d * LD + tx + 8 * j];
-        bo[j] = dOt[d * LD + tx + 8 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < CK; ++j) {
-          s[i][j] += a[i] * b[j];
-          dp[i][j] += av[i] * bo[j];
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int kr = k0 + ty * RQ + i;
-#pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const int qc = tx + 8 * j, qg = q0 + qc;
-        const bool ok = qg < S && visible(qg, kr, S, causal, window);
-        const float p = ok ? expf(s[i][j] * scale - Ls[qc]) : 0.f;
-        Ps[qc * LD + ty * RQ + i] = p;
-        dSs[qc * LD + ty * RQ + i] = p * (dp[i][j] - Ds[qc]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < BQ; ++c) {
-      float p[RQ], ds[RQ];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        p[i] = Ps[c * LD + ty * RQ + i];
-        ds[i] = dSs[c * LD + ty * RQ + i];
-      }
-#pragma unroll
-      for (int dc = 0; dc < DC; ++dc) {
-        const float g = dOt[(tx + 8 * dc) * LD + c];
-        const float x = Qt[(tx + 8 * dc) * LD + c];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) {
-          gv[i][dc] += p[i] * g;
-          gk[i][dc] += ds[i] * x;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int r = k0 + ty * RQ + i;
-    if (r >= S) continue;
-#pragma unroll
-    for (int dc = 0; dc < DC; ++dc) {
-      const size_t at = base + (size_t)r * D + tx + 8 * dc;
-      dk[at] = from_f<T>(gk[i][dc] * scale);
-      dv[at] = from_f<T>(gv[i][dc]);
+    for (int n = 0; n < NC / 16; ++n) {
+      ldsm_x4(r, ya + n * 16 * ROW + kk * 32);
+      mma_op(acc[2 * n], a, frag_b_raw<T>(r[0], r[1]));
+      mma_op(acc[2 * n + 1], a, frag_b_raw<T>(r[2], r[3]));
     }
   }
 }
 
-template <typename T, int D, int BQ>
-__global__ void __launch_bounds__(NT)
+// x = hi + lo for a pair of values, both parts in bf16 (hi rounded to
+// nearest, lo the rounded remainder): about 16 bits of each.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(
+      x0 - __low2float(h), x1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// acc[NO / 8][4] += A Y for one warp: A is 16 x K, given in the
+// accumulator layout of score() (p[j] holds columns 8 j ... 8 j + 7), Y
+// is K walked rows by NO columns in shared memory from ys.
+//  - The sum over this tile's K rows goes into a fresh accumulator for
+//    every two n8 tiles, which is then added to acc in f32 (the note at
+//    the head of the file says why).
+//  - bf16: A (P or dS) is split into a bf16 high and low part, two
+//    products. Two n8 accumulators pack into one k16 A fragment, and
+//    ldmatrix.trans reads Y.
+//  - TF32: the accumulator's columns (2t, 2t + 1) serve as the A
+//    fragment's k = (t, t + 4), and B is read from Y's rows 2t and 2t + 1
+//    to match.
+template <typename T, int K, int NO, int LD>
+__device__ __forceinline__ void outer(float (&acc)[NO / 8][4],
+                                      const float (&p)[K / 8][4],
+                                      const T* ys, int lane) {
+  if constexpr (std::is_same<T, float>::value) {
+    FragA<float> a[K / 8];
+#pragma unroll
+    for (int kk = 0; kk < K / 8; ++kk)
+      a[kk] = frag_a_tf32(p[kk][0], p[kk][2], p[kk][1], p[kk][3]);
+    const float* yb = ys + 2 * (lane & 3) * LD + (lane >> 2);
+#pragma unroll
+    for (int n = 0; n < NO / 8; n += 2) {
+      float part[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < K / 8; ++kk)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float* y = yb + kk * 8 * LD + (n + i) * 8;
+          mma_op(part[i], a[kk], frag_b_raw<float>(__float_as_uint(y[0]),
+                                                   __float_as_uint(y[LD])));
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n + i][e] += part[i][e];
+    }
+  } else {
+    FragA<__nv_bfloat16> hi[K / 16], lo[K / 16];
+#pragma unroll
+    for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int j = 2 * kk + (r >> 1), e = 2 * (r & 1);
+        split_bf16(p[j][e], p[j][e + 1], hi[kk].x[r], lo[kk].x[r]);
+      }
+    constexpr int ROW = LD * 2;
+    const uint32_t ya = smem_u32(ys) +
+                        ((lane & 7) + (((lane >> 3) & 1) << 3)) * ROW +
+                        (lane >> 4) * 16;
+#pragma unroll
+    for (int n = 0; n < NO / 16; ++n) {
+      float part[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < K / 16; ++kk) {
+        uint32_t r[4];
+        ldsm_x4_t(r, ya + kk * 16 * ROW + n * 32);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const FragB<__nv_bfloat16> b = frag_b_raw<T>(r[2 * i], r[2 * i + 1]);
+          mma_op(part[i], lo[kk], b);
+          mma_op(part[i], hi[kk], b);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[2 * n + i][e] += part[i][e];
+    }
+  }
+}
+
+// Rows [r0, r0 + ROWS) of an (S, D) matrix into s (rows LD elements
+// apart) by cp.async; rows >= S arrive as zeros.
+template <typename T, int D, int ROWS, int LD, int NTH>
+__device__ __forceinline__ void load_rows(T* s, const T* g, int r0, int S) {
+  constexpr int CH = 16 / (int)sizeof(T), CPR = D / CH;
+  for (int c = threadIdx.x; c < ROWS * CPR; c += NTH) {
+    const int r = c / CPR, col = (c % CPR) * CH, row = r0 + r;
+    const bool in = row < S;
+    cp_async16(s + r * LD + col, g + (size_t)(in ? row : 0) * D + col, in);
+  }
+}
+
+// n entries [r0, r0 + n) of a length-S f32 vector into s; zeros past S.
+template <int NTH>
+__device__ __forceinline__ void load_vec(float* s, const float* g, int r0,
+                                         int n, int S) {
+  for (int i = threadIdx.x; i < n; i += NTH) {
+    const bool in = r0 + i < S;
+    cp_async4(s + i, g + (in ? r0 + i : 0), in);
+  }
+}
+
+template <typename T> __device__ __forceinline__ void store2(T* p, float a,
+                                                            float b);
+template <> __device__ __forceinline__ void store2<float>(float* p, float a,
+                                                          float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <> __device__ __forceinline__ void store2<__nv_bfloat16>(
+    __nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// One warp's 16 x NO accumulator, times `mul`, into rows r0 + (0..15) and
+// columns c0 + (0..NO) of an (S, D) matrix; rows >= S are not written.
+template <typename T, int D, int NO>
+__device__ __forceinline__ void store_rows(T* out,
+                                           const float (&acc)[NO / 8][4],
+                                           int r0, int c0, int S, float mul,
+                                           int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < NO / 8; ++j)
+      store2<T>(out + (size_t)row * D + c0 + 8 * j + 2 * t,
+                acc[j][2 * h] * mul, acc[j][2 * h + 1] * mul);
+  }
+}
+
+// Tiles and warps of a backward instance: BM rows of the block's own tile
+// (16 a warp row), BN rows of each walked tile, NW warps in NW / WD rows
+// by WD groups of output columns. The walked tile is as long as the
+// registers allow without spilling: f32 A fragments take twice bf16's
+// registers (big and small parts), and bf16 dkdv at D = 128 holds the
+// high and low parts of P and dS beside 128 accumulators a thread. At
+// D = 256, dK and dV take two column groups (WD = 2).
+struct Tiles { int bm, bn, nw, wd; };
+
+template <typename T, int D, bool DKDV> constexpr Tiles bwd_tiles() {
+  constexpr bool f32 = std::is_same<T, float>::value;
+  if (D <= 64) return {64, f32 ? 32 : 64, 4, 1};
+  if (D == 128) return {128, f32 ? 32 : DKDV ? 16 : 64, 8, 1};
+  if (DKDV) return f32 ? Tiles{32, 32, 4, 2} : Tiles{64, 32, 8, 2};
+  return f32 ? Tiles{64, 16, 4, 1} : Tiles{128, 32, 8, 1};
+}
+
+// Shared-memory row of a tile: D elements and 16 bytes of padding, so the
+// eight 16-byte rows an ldmatrix phase reads fall in distinct banks, and
+// so do the TF32 B loads of outer() (rows 2t apart).
+template <typename T, int D> __host__ __device__ constexpr int tile_ld() {
+  return D + 16 / (int)sizeof(T);
+}
+
+template <typename T, int D, int BM, int BN, int NW>
+__global__ void __launch_bounds__(NW * 32, 1)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ o,
               const float* __restrict__ lse, const T* __restrict__ dout,
-              T* __restrict__ dq, int S, int causal, int window,
-              float scale) {
-  constexpr int DC = D / 8, LD = BQ + 1, RQ = BQ / 16, CK = BQ / 8;
-  extern __shared__ float sm[];
-  float* Qt = sm;
-  float* dOt = Qt + D * LD;
-  float* Kt = dOt + D * LD;
-  float* Vt = Kt + D * LD;
-  float* dSs = Vt + D * LD;                // dSs[kc * LD + q]
-  float* Ls = dSs + BQ * LD;
-  float* Ds = Ls + BQ;
-  const int bh = blockIdx.y, qt = blockIdx.x, q0 = qt * BQ;
+              T* __restrict__ dq, float* __restrict__ delta, int S,
+              int causal, int window, float scale) {
+  static_assert(BM == 16 * NW, "dq: one warp per 16 q rows");
+  constexpr int LD = tile_ld<T, D>(), NTH = NW * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* dOs = Qs + BM * LD;
+  T* KV = dOs + BM * LD;                   // stage s: K at KV + 2 s BN LD
+  const int bh = blockIdx.x, n_qt = (S + BM - 1) / BM;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * BM;   // heaviest first
   const size_t base = (size_t)bh * S * D;
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_kv = (S + BN - 1) / BN;
+  const int kv_lo = window ? max(0, q0 - window + 1) / BN : 0;
+  const int kv_hi = causal ? min(n_kv, (min(q0 + BM, S) - 1) / BN + 1)
+                           : n_kv;
 
-  load_t<T, D, BQ>(Qt, q + base, q0, S);
-  load_t<T, D, BQ>(dOt, dout + base, q0, S);
-  __syncthreads();
-  load_lse_delta<T, D, BQ>(Ls, Ds, dOt, o + base, lse + (size_t)bh * S,
-                           q0, S);
-  float gq[RQ][DC];
+  load_rows<T, D, BM, LD, NTH>(Qs, q + base, q0, S);
+  load_rows<T, D, BM, LD, NTH>(dOs, dout + base, q0, S);
+  if (kv_lo < kv_hi) {
+    load_rows<T, D, BN, LD, NTH>(KV, k + base, kv_lo * BN, S);
+    load_rows<T, D, BN, LD, NTH>(KV + BN * LD, v + base, kv_lo * BN, S);
+  }
+  cp_commit();
+
+  // D_i = rowsum(dO_i * O_i) and lse_i for the warp's 16 rows while the
+  // copies fly; lane (g, t) keeps rows g and g + 8.
+  const int r0 = q0 + warp * 16;
+  float dl[2] = {0.f, 0.f}, l2[2];
 #pragma unroll
-  for (int i = 0; i < RQ; ++i)
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    l2[h] = row < S ? lse[(size_t)bh * S + row] * LOG2E : 0.f;
+  }
 #pragma unroll
-    for (int c = 0; c < DC; ++c) gq[i][c] = 0.f;
-  const int n_kv = (S + BQ - 1) / BQ;
-  const int kv_end = causal ? min(n_kv, qt + 1) : n_kv;
-  for (int kt = first_kv_tile(q0, window, BQ); kt < kv_end; ++kt) {
-    const int k0 = kt * BQ;
+  for (int i = 0; i < 16; ++i) {
+    const int row = r0 + i;
+    float acc = 0.f;
+    if (row < S)
+      for (int d = lane; d < D; d += 32)
+        acc += to_f(dout[base + (size_t)row * D + d]) *
+               to_f(o[base + (size_t)row * D + d]);
+#pragma unroll
+    for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(FULL, acc, off);
+    if (lane == 0 && row < S) delta[(size_t)bh * S + row] = acc;
+    if (i == g) dl[0] = acc;
+    if (i == g + 8) dl[1] = acc;
+  }
+
+  const float sl2 = scale * LOG2E;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int it = kv_lo; it < kv_hi; ++it) {
+    const int st = (it - kv_lo) & 1;
+    if (it + 1 < kv_hi) {
+      T* nxt = KV + (st ^ 1) * 2 * BN * LD;
+      load_rows<T, D, BN, LD, NTH>(nxt, k + base, (it + 1) * BN, S);
+      load_rows<T, D, BN, LD, NTH>(nxt + BN * LD, v + base, (it + 1) * BN,
+                                   S);
+    }
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
-    load_t<T, D, BQ>(Kt, k + base, k0, S);
-    load_t<T, D, BQ>(Vt, v + base, k0, S);
+    const T* Ks = KV + st * 2 * BN * LD;
+    const T* Vs = Ks + BN * LD;
+    float s[BN / 8][4], dp[BN / 8][4];
+    score<T, D, LD, BN>(s, Qs + warp * 16 * LD, Ks, lane);
+    score<T, D, LD, BN>(dp, dOs + warp * 16 * LD, Vs, lane);
+    const int k0 = it * BN;
+    const bool edge = (causal && k0 + BN - 1 > q0) ||
+                      (window && q0 + BM - 1 - k0 >= window) || k0 + BN > S;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[j][e], sl2, -l2[e >> 1]));
+        if (edge && !visible(r0 + g + 8 * (e >> 1),
+                             k0 + 8 * j + 2 * t + (e & 1), S, causal,
+                             window))
+          p = 0.f;
+        s[j][e] = p * (dp[j][e] - dl[e >> 1]);         // dS
+      }
+    outer<T, BN, D, LD>(acc, s, Ks, lane);
+    __syncthreads();                       // stage st free for it + 2
+  }
+  cp_wait<0>();
+  store_rows<T, D, D>(dq + base, acc, r0, 0, S, scale, lane);
+}
+
+template <typename T, int D, int BM, int BN, int NW, int WD>
+__global__ void __launch_bounds__(NW * 32, 1)
+bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const float* __restrict__ delta,
+                const float* __restrict__ lse, const T* __restrict__ dout,
+                T* __restrict__ dk, T* __restrict__ dv, int S, int causal,
+                int window, float scale) {
+  constexpr int WM = NW / WD, LD = tile_ld<T, D>(), NTH = NW * 32;
+  constexpr int BNW = BN / WD, DW = D / WD, LDP = BN + 8;
+  static_assert(BM == 16 * WM && BNW % 16 == 0 && DW % 16 == 0, "tiles");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + BM * LD;
+  T* QD = Vs + BM * LD;                    // stage s: Q at QD + 2 s BN LD
+  float* LDl = reinterpret_cast<float*>(QD + 4 * BN * LD);  // [s][lse, D]
+  float* Ps = LDl + 4 * BN;                // WD > 1: P, then dS, staged
+  const int bh = blockIdx.x, k0 = blockIdx.y * BM;     // heaviest first
+  const size_t base = (size_t)bh * S * D;
+  const float* lse_bh = lse + (size_t)bh * S;
+  const float* dl_bh = delta + (size_t)bh * S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, wm = warp % WM, wd = warp / WM;
+  const int n_q = (S + BN - 1) / BN;
+  const int q_lo = causal ? k0 / BN : 0;
+  // the last query that sees a key of this tile is its last key + window - 1
+  const int q_hi =
+      window ? min(n_q, (min(k0 + BM, S) + window - 2) / BN + 1) : n_q;
+
+  load_rows<T, D, BM, LD, NTH>(Ks, k + base, k0, S);
+  load_rows<T, D, BM, LD, NTH>(Vs, v + base, k0, S);
+  if (q_lo < q_hi) {
+    load_rows<T, D, BN, LD, NTH>(QD, q + base, q_lo * BN, S);
+    load_rows<T, D, BN, LD, NTH>(QD + BN * LD, dout + base, q_lo * BN, S);
+    load_vec<NTH>(LDl, lse_bh, q_lo * BN, BN, S);
+    load_vec<NTH>(LDl + BN, dl_bh, q_lo * BN, BN, S);
+  }
+  cp_commit();
+
+  const float sl2 = scale * LOG2E;
+  const int r0 = k0 + wm * 16;
+  float gk[DW / 8][4], gv[DW / 8][4];
+#pragma unroll
+  for (int j = 0; j < DW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[j][e] = gv[j][e] = 0.f;
+  for (int it = q_lo; it < q_hi; ++it) {
+    const int st = (it - q_lo) & 1;
+    if (it + 1 < q_hi) {
+      T* nxt = QD + (st ^ 1) * 2 * BN * LD;
+      float* nl = LDl + (st ^ 1) * 2 * BN;
+      load_rows<T, D, BN, LD, NTH>(nxt, q + base, (it + 1) * BN, S);
+      load_rows<T, D, BN, LD, NTH>(nxt + BN * LD, dout + base, (it + 1) * BN,
+                                   S);
+      load_vec<NTH>(nl, lse_bh, (it + 1) * BN, BN, S);
+      load_vec<NTH>(nl + BN, dl_bh, (it + 1) * BN, BN, S);
+    }
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
-    float s[RQ][CK], dp[RQ][CK];
+    const T* Qs = QD + st * 2 * BN * LD;
+    const T* dOs = Qs + BN * LD;
+    const float* Ls = LDl + st * 2 * BN;
+    const float* Dls = Ls + BN;
+    // S^T and dP^T for the warp's 16 keys and its BNW queries
+    float s[BNW / 8][4], dp[BNW / 8][4];
+    score<T, D, LD, BNW>(s, Ks + wm * 16 * LD, Qs + wd * BNW * LD, lane);
+    score<T, D, LD, BNW>(dp, Vs + wm * 16 * LD, dOs + wd * BNW * LD, lane);
+    const int q0 = it * BN;
+    const bool edge = (causal && q0 < k0 + BM - 1) ||
+                      (window && q0 + BN - 1 - k0 >= window) || q0 + BN > S;
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
+    for (int j = 0; j < BNW / 8; ++j) {
+      const int c = wd * BNW + 8 * j + 2 * t;
+      const float2 lq = *reinterpret_cast<const float2*>(Ls + c);
+      const float2 dd = *reinterpret_cast<const float2*>(Dls + c);
 #pragma unroll
-      for (int j = 0; j < CK; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      float a[RQ], ao[RQ], b[CK], bv[CK];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        a[i] = Qt[d * LD + ty * RQ + i];
-        ao[i] = dOt[d * LD + ty * RQ + i];
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + c + (e & 1);
+        float p = exp2f(fmaf(s[j][e], sl2, -(e & 1 ? lq.y : lq.x) * LOG2E));
+        if (edge && !(qi < S && visible(qi, r0 + g + 8 * (e >> 1), S, causal,
+                                        window)))
+          p = 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - (e & 1 ? dd.y : dd.x));   // dS^T
       }
+    }
+    if constexpr (WD == 1) {
+      outer<T, BN, DW, LD>(gv, s, dOs, lane);
+      outer<T, BN, DW, LD>(gk, dp, Qs, lane);
+    } else {
+      // the warps of a row group exchange their column slices of P, dS
+      float* dSs = Ps + BM * LDP;
+      const int pr = wm * 16 + g;
 #pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        b[j] = Kt[d * LD + tx + 8 * j];
-        bv[j] = Vt[d * LD + tx + 8 * j];
-      }
+      for (int j = 0; j < BNW / 8; ++j) {
+        const int c = wd * BNW + 8 * j + 2 * t;
 #pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < CK; ++j) {
-          s[i][j] += a[i] * b[j];
-          dp[i][j] += ao[i] * bv[j];
+        for (int h = 0; h < 2; ++h) {
+          *reinterpret_cast<float2*>(Ps + (pr + 8 * h) * LDP + c) =
+              make_float2(s[j][2 * h], s[j][2 * h + 1]);
+          *reinterpret_cast<float2*>(dSs + (pr + 8 * h) * LDP + c) =
+              make_float2(dp[j][2 * h], dp[j][2 * h + 1]);
         }
-    }
+      }
+      __syncthreads();
+      float rows[BN / 8][4];               // the full rows of P, then dS
+#pragma unroll 1
+      for (int x = 0; x < 2; ++x) {
+        const float* src = x ? dSs : Ps;
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int qr = ty * RQ + i, qg = q0 + qr;
+        for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const int kc = tx + 8 * j, kg = k0 + kc;
-        const bool ok = qg < S && visible(qg, kg, S, causal, window);
-        const float p = ok ? expf(s[i][j] * scale - Ls[qr]) : 0.f;
-        dSs[kc * LD + qr] = p * (dp[i][j] - Ds[qr]);
+          for (int h = 0; h < 2; ++h) {
+            const float2 a = *reinterpret_cast<const float2*>(
+                src + (pr + 8 * h) * LDP + 8 * j + 2 * t);
+            rows[j][2 * h] = a.x;
+            rows[j][2 * h + 1] = a.y;
+          }
+        if (x)
+          outer<T, BN, DW, LD>(gk, rows, Qs + wd * DW, lane);
+        else
+          outer<T, BN, DW, LD>(gv, rows, dOs + wd * DW, lane);
       }
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < BQ; ++c) {
-      float ds[RQ];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) ds[i] = dSs[c * LD + ty * RQ + i];
-#pragma unroll
-      for (int dc = 0; dc < DC; ++dc) {
-        const float x = Kt[(tx + 8 * dc) * LD + c];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) gq[i][dc] += ds[i] * x;
-      }
-    }
+    __syncthreads();                       // stage st free for it + 2
   }
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int r = q0 + ty * RQ + i;
-    if (r >= S) continue;
-#pragma unroll
-    for (int dc = 0; dc < DC; ++dc)
-      dq[base + (size_t)r * D + tx + 8 * dc] = from_f<T>(gq[i][dc] * scale);
-  }
+  cp_wait<0>();
+  store_rows<T, D, DW>(dk + base, gk, r0, wd * DW, S, scale, lane);
+  store_rows<T, D, DW>(dv + base, gv, r0, wd * DW, S, 1.f, lane);
 }
 
 constexpr int kUnsupported = 100000;   // not a cudaError_t value
@@ -467,32 +822,38 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
 }
 
 template <typename T, int D>
-int dkdv(const void* q, const void* k, const void* v, const void* o,
+int dkdv(const void* q, const void* k, const void* v, const float* delta,
          const float* lse, const void* dout, void* dk, void* dv, int bh,
          int S, int causal, int window, float scale, cudaStream_t st) {
-  constexpr int BQ = tile_rows<D>(), LD = BQ + 1;
-  const size_t smem = (4 * D * LD + 2 * BQ * LD + 2 * BQ) * sizeof(float);
-  auto kern = bwd_dkdv_kernel<T, D, BQ>;
+  constexpr Tiles c = bwd_tiles<T, D, true>();
+  const size_t smem =
+      (size_t)(2 * c.bm + 4 * c.bn) * tile_ld<T, D>() * sizeof(T) +
+      4 * c.bn * sizeof(float) +
+      (c.wd > 1 ? 2 * c.bm * (c.bn + 8) * sizeof(float) : 0);
+  auto kern = bwd_dkdv_kernel<T, D, c.bm, c.bn, c.nw, c.wd>;
   if (int rc = launch_prep(kern, smem)) return rc;
-  dim3 grid((S + BQ - 1) / BQ, bh);
-  kern<<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
-                               (const T*)o, lse, (const T*)dout, (T*)dk,
-                               (T*)dv, S, causal, window, scale);
+  dim3 grid(bh, (S + c.bm - 1) / c.bm);
+  kern<<<grid, c.nw * 32, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
+                                      delta, lse, (const T*)dout, (T*)dk,
+                                      (T*)dv, S, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int dq(const void* q, const void* k, const void* v, const void* o,
-       const float* lse, const void* dout, void* dqp, int bh, int S,
-       int causal, int window, float scale, cudaStream_t st) {
-  constexpr int BQ = tile_rows<D>(), LD = BQ + 1;
-  const size_t smem = (4 * D * LD + BQ * LD + 2 * BQ) * sizeof(float);
-  auto kern = bwd_dq_kernel<T, D, BQ>;
+       const float* lse, const void* dout, void* dqp, float* delta, int bh,
+       int S, int causal, int window, float scale, cudaStream_t st) {
+  constexpr Tiles c = bwd_tiles<T, D, false>();
+  static_assert(c.wd == 1, "dq: a warp owns all of its rows' columns");
+  const size_t smem =
+      (size_t)(2 * c.bm + 4 * c.bn) * tile_ld<T, D>() * sizeof(T);
+  auto kern = bwd_dq_kernel<T, D, c.bm, c.bn, c.nw>;
   if (int rc = launch_prep(kern, smem)) return rc;
-  dim3 grid((S + BQ - 1) / BQ, bh);
-  kern<<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
-                               (const T*)o, lse, (const T*)dout, (T*)dqp,
-                               S, causal, window, scale);
+  dim3 grid(bh, (S + c.bm - 1) / c.bm);
+  kern<<<grid, c.nw * 32, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
+                                      (const T*)o, lse, (const T*)dout,
+                                      (T*)dqp, delta, S, causal, window,
+                                      scale);
   return (int)cudaGetLastError();
 }
 
@@ -527,22 +888,23 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
            (cudaStream_t)stream)
 }
 
+// Run flash_bwd_dq first: it writes delta, which flash_bwd_dkdv reads.
+int flash_bwd_dq(const void* q, const void* k, const void* v,
+                 const void* o, const void* lse, const void* dout,
+                 void* dqp, void* delta, int bh, int s, int d, int dtype,
+                 int causal, int window, float scale, void* stream) {
+  if ((dtype != 0 && dtype != 1) || window < 0) return kUnsupported;
+  DISPATCH(dq, q, k, v, o, (const float*)lse, dout, dqp, (float*)delta, bh,
+           s, causal, window, scale, (cudaStream_t)stream)
+}
+
 int flash_bwd_dkdv(const void* q, const void* k, const void* v,
-                   const void* o, const void* lse, const void* dout,
+                   const void* delta, const void* lse, const void* dout,
                    void* dk, void* dv, int bh, int s, int d, int dtype,
                    int causal, int window, float scale, void* stream) {
   if ((dtype != 0 && dtype != 1) || window < 0) return kUnsupported;
-  DISPATCH(dkdv, q, k, v, o, (const float*)lse, dout, dk, dv, bh, s,
-           causal, window, scale, (cudaStream_t)stream)
-}
-
-int flash_bwd_dq(const void* q, const void* k, const void* v,
-                 const void* o, const void* lse, const void* dout,
-                 void* dqp, int bh, int s, int d, int dtype, int causal,
-                 int window, float scale, void* stream) {
-  if ((dtype != 0 && dtype != 1) || window < 0) return kUnsupported;
-  DISPATCH(dq, q, k, v, o, (const float*)lse, dout, dqp, bh, s, causal,
-           window, scale, (cudaStream_t)stream)
+  DISPATCH(dkdv, q, k, v, (const float*)delta, (const float*)lse, dout, dk,
+           dv, bh, s, causal, window, scale, (cudaStream_t)stream)
 }
 
 }  // extern "C"

@@ -4,7 +4,7 @@ bound through ctypes, their plain PyTorch versions, and the
 
 The counterpart of the Pallas TPU kernel in
 `repro/kernels/flash_attention.py` (`_flash_kernel`), which is
-forward-only; here `flash_bwd_dkdv` and `flash_bwd_dq` carry the
+forward-only; here `flash_bwd_dq` and then `flash_bwd_dkdv` carry the
 gradient. A CUDA tensor launches the kernel (or raises); only a CPU
 tensor runs the plain version, so the CPU tests exercise the same
 wiring and the same recompute-from-lse formula.
@@ -129,27 +129,37 @@ def flash_fwd(q, k, v, causal: bool, scale: float, window: int = 0):
     return o, lse
 
 
+def _aligned16(t):
+    """t itself when its data starts on a 16-byte boundary (the backward
+    kernels copy rows 16 bytes at a time), else a fresh copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_bwd(q, k, v, o, lse, do, causal: bool, scale: float,
               window: int = 0):
-    """(dq, dk, dv): the `flash_bwd_dkdv` and `flash_bwd_dq` kernels for
-    CUDA tensors, the plain version for CPU tensors."""
+    """(dq, dk, dv, delta): the `flash_bwd_dq` kernel, which also writes
+    delta = rowsum(dO * O) ((BH, S) f32), then `flash_bwd_dkdv`, which
+    reads it, for CUDA tensors; the plain version for CPU tensors."""
     _check(q, k, v, o, do)
     _check_window(window)
     if _device_kind(q) == "cpu":
-        return attention_bwd_ref(q, k, v, o, lse, do, causal, scale,
-                                 window)
-    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+        delta = (do.float() * o.float()).sum(-1)
+        return (*attention_bwd_ref(q, k, v, o, lse, do, causal, scale,
+                                   window), delta)
+    q, k, v, o, do = (_aligned16(t.contiguous()) for t in (q, k, v, o, do))
     lse = lse.contiguous()
     bh, s, d = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     common = (bh, s, d, _DTYPE_CODE[q.dtype], int(causal), int(window),
               float(scale))
-    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-           lse.data_ptr(), do.data_ptr())
-    launch("flash_bwd_dkdv", *ins, dk.data_ptr(), dv.data_ptr(), *common,
-           device=q.device)
-    launch("flash_bwd_dq", *ins, dq.data_ptr(), *common, device=q.device)
-    return dq, dk, dv
+    launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+           delta.data_ptr(), *common, device=q.device)
+    launch("flash_bwd_dkdv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           delta.data_ptr(), lse.data_ptr(), do.data_ptr(), dk.data_ptr(),
+           dv.data_ptr(), *common, device=q.device)
+    return dq, dk, dv, delta
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -166,8 +176,8 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal, ctx.scale,
-                               ctx.window)
+        dq, dk, dv, _ = flash_bwd(q, k, v, o, lse, do, ctx.causal,
+                                  ctx.scale, ctx.window)
         return dq, dk, dv, None, None, None
 
 

@@ -125,6 +125,30 @@ def test_backward_matches_autograd_and_jax_vjp(causal, d):
         assert torch.equal(f.grad, g)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_returns_the_row_sums_of_do_times_o(causal):
+    """flash_bwd's fourth output, delta = rowsum(dO * O), which the dq
+    kernel writes and the dkdv kernel reads in place of O, against the
+    JAX package's attention output; its gradients are the plain
+    version's."""
+    bh, s, d = 2, 40, 32
+    q, k, v, do = _inputs(11 + causal, *[(bh, s, d)] * 4)
+    scale = d ** -0.5
+    tq, tk, tv, tdo = (_t(a) for a in (q, k, v, do))
+    o, lse = fa.flash_fwd(tq, tk, tv, causal, scale)
+    *grads, delta = fa.flash_bwd(tq, tk, tv, o, lse, tdo, causal, scale)
+    for g, r in zip(grads, fa.attention_bwd_ref(tq, tk, tv, o, lse, tdo,
+                                                causal, scale)):
+        assert torch.equal(g, r)
+    pos = jnp.broadcast_to(jnp.arange(s)[None], (bh, s))
+    jo = jatt.dense_attention(
+        jnp.asarray(q)[:, :, None, None], jnp.asarray(k)[:, :, None],
+        jnp.asarray(v)[:, :, None], pos, pos, causal=causal)[:, :, 0, 0]
+    np.testing.assert_allclose(delta.numpy(),
+                               np.sum(do * np.asarray(jo), -1),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
 def test_forward_lse_is_the_log_normalizer():
     q, k, v = _inputs(7, *[(2, 40, 32)] * 3)
     o, lse = fa.attention_fwd_ref(_t(q), _t(k), _t(v), True, 32 ** -0.5)
