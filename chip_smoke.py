@@ -5,16 +5,19 @@
 Phases (each failure exits non-zero):
   1. card: name and power limit, torch and CUDA versions, kernel build,
      each kernel instance's registers and spills (ptxas); every attention
-     backward instance must issue tensor-core instructions (HMMA in its
-     SASS) and spill nothing;
+     backward instance and every tensor-core instance of the grouped
+     matmul (gmm_fwd, gmm_bwd_dx) must issue tensor-core instructions
+     (HMMA in its SASS) and spill nothing;
   2. kernels: every CUDA kernel of the main paths against its plain
      PyTorch version on the card (tolerances below; the kernels' outputs
      are allocated filled with NaN, so one left unwritten fails),
      bitwise repeats, and times: the kernel, the plain version, and one PyTorch call as
      a yardstick only, never called by the port
      (scaled_dot_product_attention for attention, with the window as a
-     mask where there is one; torch.bmm for the grouped expert matmul;
-     none for the RG-LRU scan and the chunkwise mLSTM);
+     mask where there is one; torch.bmm for the grouped expert matmul,
+     whose gmm_fwd and gmm_bwd_dx must be faster than it at both of the
+     MoE path's shapes; none for the RG-LRU scan and the chunkwise
+     mLSTM);
   3. reference: the engine on the card against the same engine on the
      CPU (plain versions) at the campaign's tiny GPT and at the reduced
      Qwen1.5-MoE config, and make_train_step on the card against the
@@ -44,8 +47,8 @@ Phases (each failure exits non-zero):
 Each engine slice runs setup, record_iteration and 3 x train_iteration
 twice with the same seed; the launcher slices run the launcher twice.
 Losses must be bitwise equal across the two runs, and the GPT and MoE
-slices' first losses equal those of the kernels before head dim 256 and
-the window came in (so the d <= 128 instances are unchanged). Every
+slices' first losses equal the pinned ones (GPT_FIRST_LOSS,
+MOE_FIRST_LOSS). Every
 kernel's launch count is zeroed just before a path's first run and read
 just after it, and must equal the count derived from the config. The
 last lines are a JSON line per kernel result, the card line, and
@@ -86,9 +89,13 @@ SCAN_F32_TOL, SCAN_BF16_TOL = 1e-5, 2e-2
 # xLSTM: losses and grad norms (f32; sums in other orders over two
 # steps)
 STEP_REF_TOL = 1e-4
-# first losses of the GPT-medium and Qwen MoE slices with the d <= 128
-# attention kernels as they were before the window and d = 256 came in
-GPT_FIRST_LOSS, MOE_FIRST_LOSS = 11.067411184310913, 12.318589687347412
+# first loss of the GPT-medium slice, pinned to the d <= 128 attention
+# kernels as they were before the window and d = 256 came in
+GPT_FIRST_LOSS = 11.067411184310913
+# first loss of the Qwen MoE slice, pinned to the grouped matmul's
+# tensor-core gmm_fwd and gmm_bwd_dx (gmm_mma_kernel) beside gmm_bwd_dw's
+# FMA loop
+MOE_FIRST_LOSS = 12.318589687347412
 # H100 SXM peaks (NVIDIA data sheet, dense), HBM3 bandwidth. f32: the
 # TF32 tensor-core rate of 495 TFLOP/s over the three products that keep
 # f32 accuracy (3xTF32, as the attention backward runs), the card's
@@ -178,6 +185,24 @@ def time_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def time_pair_ms(fa, fb, reps: int):
+    """Medians of `reps` launches each of fa and fb, taken in turns (fa,
+    fb, fa, ...) so that a drift of the card's clock falls on both."""
+    times = ([], [])
+    for fn in (fa, fb, fa, fb):
+        fn()
+    for _ in range(reps):
+        for fn, out in zip((fa, fb), times):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b))
+    return statistics.median(times[0]), statistics.median(times[1])
 
 
 def visible_pairs(s, causal, window):
@@ -388,18 +413,70 @@ def time_attention(fa, results, shape, q, k, v, do, o, lse, sc):
           f"ratio {pair / lib_bwd:.3f}", flush=True)
 
 
+def gmm_wide(a, b, a_row: int, b_row: int) -> bool:
+    """Whether moe_gmm.cu's host code picks the wide (16-byte copy)
+    instance of gmm_mma_kernel: both operands' stored rows (a_row, b_row
+    elements) a multiple of 16 bytes and both bases 16-byte aligned."""
+    el = a.element_size()
+    return (a_row * el % 16 == 0 and b_row * el % 16 == 0
+            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+
+
+def gmm_instances(fn, tries: int = 3):
+    """The grouped-matmul kernel instances `fn` launches, in launch
+    order, named as instance_name names them (`gmm_mma_kernel<dtype, TA,
+    TB, WIDE>`, `gmm_kernel<dtype, TA, TB>`), from the profiler's
+    kernel names, mangled or not. The profiler has come back with no
+    device event at all for three launches of a few microseconds, so an
+    empty profile is taken again, up to `tries` times."""
+    from torch.profiler import ProfilerActivity, profile
+    words = {"float": "f32", "__nv_bfloat16": "bf16", "false": "0",
+             "true": "1"}
+    out = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for name, _ in device_kernels(prof):
+            inst = instance_name(name)
+            m = re.search(r"(gmm(?:_mma)?_kernel)<([^>]*)>", name)
+            if inst is None and m:
+                args = [words.get(a.strip(), a.strip())
+                        for a in m.group(2).split(",")]
+                inst = f"{m.group(1)}<{', '.join(args)}>"
+            if inst and inst.startswith("gmm"):
+                out.append(inst)
+        if out:
+            break
+    return out
+
+
 def check_gmm(gm):
     """The three grouped-matmul kernels against their plain versions at
-    the MoE path's gate/up and down shapes and at ragged small shapes;
-    returns the gate/up-shape results by kernel name."""
+    the MoE path's gate/up and down shapes and at ragged small shapes
+    that cut every edge of gmm_mma_kernel's tile (rows no multiple of
+    MMA_BM = 128, reductions no multiple of the 32 f32 / 64 bf16 R tile,
+    columns no multiple of 8), with the wide and the narrow copies;
+    says which instance each kernel ran. Returns the gate/up-shape
+    results by kernel name, the down shape's under "shapes"."""
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = [dict(GMM_SLICE), dict(GMM_DOWN),
-             dict(e=3, m=5, k=33, n=17, dtype=torch.float32),
-             dict(e=8, m=20, k=64, n=96, dtype=torch.float32),
-             dict(e=2, m=130, k=70, n=65, dtype=torch.float32),
-             dict(GMM_SLICE, dtype=torch.bfloat16),
-             dict(e=3, m=5, k=33, n=17, dtype=torch.bfloat16)]
+             dict(e=3, m=5, k=33, n=17, dtype=f32),
+             dict(e=8, m=20, k=64, n=96, dtype=f32),
+             dict(e=2, m=130, k=70, n=65, dtype=f32),
+             dict(GMM_SLICE, dtype=bf16),
+             dict(e=3, m=5, k=33, n=17, dtype=bf16),
+             # wide in f32 (rows of 48 and 20 f32), narrow in bf16 (20
+             # bf16 is 40 bytes): M 150 = 128 + 22, K 48 = 32 + 16, N 20
+             dict(e=4, m=150, k=48, n=20, dtype=f32),
+             dict(e=4, m=150, k=48, n=20, dtype=bf16),
+             # wide bf16: K 72 = 64 + 8, N 136 = 128 + 8, M 200
+             dict(e=3, m=200, k=72, n=136, dtype=bf16),
+             # the path's 342 tokens with K and N short of the tiles
+             dict(e=2, m=342, k=40, n=24, dtype=f32)]
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    results = {}
+    results, shapes = {}, {n: [] for n in GMM}
     for c in cases:
         e, m, k, n, dt = c["e"], c["m"], c["k"], c["n"], c["dtype"]
         rnd = lambda *sh, sc=1.0: (torch.randn(
@@ -415,7 +492,14 @@ def check_gmm(gm):
         with unwritten_is_nan():
             again = run()
         repeat = all(torch.equal(a, b) for a, b in zip(got, again))
-        tol = GMM_F32_TOL if dt == torch.float32 else GMM_BF16_TOL
+        del again
+        ran = gmm_instances(run)
+        wide = {"gmm_fwd": gmm_wide(x, w, k, n),
+                "gmm_bwd_dx": gmm_wide(dy, w, n, n)}
+        want_ran = [f"gmm_mma_kernel<{'f32' if dt == f32 else 'bf16'}, 0, "
+                    f"{tb}, {int(wide[nm])}>"
+                    for nm, tb in (("gmm_fwd", 0), ("gmm_bwd_dx", 1))]
+        tol = GMM_F32_TOL if dt == f32 else GMM_BF16_TOL
         errs, rels = {}, {}
         for name, g, r in zip(GMM, got, want):
             if g.shape != r.shape or g.dtype != r.dtype:
@@ -427,18 +511,30 @@ def check_gmm(gm):
         label = f"E={e} M={m} K={k} N={n} {str(dt)[6:]}"
         print(f"  {label}: " + ", ".join(
             f"{nm} err {errs[nm]:.3e} (rel {rels[nm]:.2e}, tol {tol:g})"
-            for nm in GMM) + f", bitwise repeat {repeat}", flush=True)
+            for nm in GMM) + f", bitwise repeat {repeat}; ran "
+            + ", ".join(ran), flush=True)
         if not repeat or not all(rels[nm] <= tol for nm in GMM):
             raise SystemExit(f"grouped matmul check failed at {label}")
+        if ran[:2] != want_ran or len(ran) != 3:
+            raise SystemExit(f"grouped matmul at {label} ran {ran}, not "
+                             f"{want_ran} and gmm_bwd_dw's")
         if c in (GMM_SLICE, GMM_DOWN):
             timed = {nm: {"max_abs_err": errs[nm]} for nm in GMM}
             time_gmm(gm, timed, c, x, w, dy)
+            for nm in GMM:
+                shapes[nm].append({"shape": label, **timed[nm]})
             if c == GMM_SLICE:
                 results = timed
+        del x, w, dy, got, want
+    for nm in GMM:
+        results[nm]["shapes"] = shapes[nm]
     return results
 
 
 def time_gmm(gm, results, shape, x, w, dy):
+    """Times of the three kernels, their plain versions and torch.bmm at
+    one of the path's shapes, each kernel and torch.bmm in turns;
+    gmm_fwd and gmm_bwd_dx must be faster than torch.bmm."""
     reps = 10
     calls = {
         "gmm_fwd": (lambda: gm.gmm_fwd(x, w), lambda: gm.gmm_fwd_ref(x, w),
@@ -452,15 +548,19 @@ def time_gmm(gm, results, shape, x, w, dy):
     work = gmm_work(**shape)
     for name, (kern, plain, lib) in calls.items():
         r = results[name]
-        r["ms"] = time_ms(kern, reps)
+        r["ms"], r["library_ms"] = time_pair_ms(kern, lib, 2 * reps)
         r["plain_ms"] = time_ms(plain, reps)
-        r["library_ms"] = time_ms(lib, reps)
         r["bound_ms"], r["bound_by"] = bound(*work, shape["dtype"])
         print(f"  {name} at E={shape['e']} M={shape['m']} K={shape['k']} "
               f"N={shape['n']}: {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, torch.bmm {r['library_ms']:.4f} "
-              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+              f"ms (kernel / bmm {r['ms'] / r['library_ms']:.3f}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); "
               f"{work[0] / r['ms'] / 1e9:.2f} TFLOP/s", flush=True)
+    slow = [n for n in ("gmm_fwd", "gmm_bwd_dx")
+            if results[n]["ms"] >= results[n]["library_ms"]]
+    if slow:
+        raise SystemExit(f"{slow} not faster than torch.bmm at {shape}")
 
 
 def scan_work(name, b, s, d, a_dtype, x_dtype):
@@ -696,7 +796,8 @@ def time_mlstm(ml, results, shape, ins, h, dh, aux):
 
 
 KERNEL_RE = re.compile(r"((?:rglru_|mlstm_)?(?:fwd|bwd)"
-                       r"(?:_dkdv|_dqdk|_dq|_dv)?_kernel|gmm_kernel)"
+                       r"(?:_dkdv|_dqdk|_dq|_dv)?_kernel"
+                       r"|gmm(?:_mma)?_kernel)"
                        r"I((?:f|13__nv_bfloat16)+)((?:L[ib]\d+E)*)E")
 
 
@@ -755,7 +856,7 @@ GROUPS = (("mLSTM kernels", r"mlstm_(fwd|bwd_dqdk|bwd_dv)_kernel"),
           ("RG-LRU scan kernels", r"rglru_(fwd|bwd)_kernel"),
           ("attention kernels", r"\bfwd_kernel|bwd_dkdv_kernel|"
                                 r"bwd_dq_kernel"),
-          ("grouped matmul kernels", r"gmm_kernel"),
+          ("grouped matmul kernels", r"gmm_(mma_)?kernel"),
           ("matmul (cuBLAS)", r"gemm|sm90_xmma|cutlass|nvjet"))
 # device activity only: the breakdown reads kernels, and a launch-bound
 # step (the sLSTM loop) records millions of host events besides
@@ -960,6 +1061,8 @@ def expected_launches(cfg, dp: int, moe: bool):
 
 def drive(mods, label, cfg, dp, batch, moe, first_loss,
           param_dtype=torch.float32):
+    """The slice twice with one seed: launches as derived, the first loss
+    bitwise `first_loss`."""
     print(f"[slice] {label}", flush=True)
     losses, launches = run_slice(mods, cfg, dp, batch, param_dtype,
                                  count=True)
@@ -968,11 +1071,11 @@ def drive(mods, label, cfg, dp, batch, moe, first_loss,
     if not all(map(math.isfinite, losses)) or launches != want:
         raise SystemExit(f"slice failed: losses {losses}, launches "
                          f"{launches} (want {want})")
-    print(f"  first loss {losses[0]!r}, before the window and head dim "
-          f"256 came in {first_loss!r}: bitwise equal "
-          f"{losses[0] == first_loss}", flush=True)
+    print(f"  first loss {losses[0]!r}, pinned {first_loss!r}: bitwise "
+          f"equal {losses[0] == first_loss}", flush=True)
     if losses[0] != first_loss:
-        raise SystemExit("the d <= 128 attention kernels changed results")
+        raise SystemExit(f"{label}: first loss {losses[0]!r} is not the "
+                         f"pinned {first_loss!r}")
     print(f"[slice] {label}: second run, same seed", flush=True)
     again, _ = run_slice(mods, cfg, dp, batch, param_dtype, count=False)
     same = again == losses
@@ -1121,6 +1224,18 @@ def main() -> int:
             not all(bwd.values()) or spilled:
         raise SystemExit(f"attention backward: HMMA counts {bwd}, "
                          f"spilling {spilled}")
+    # so are gmm_fwd and gmm_bwd_dx (gmm_mma_kernel, wide and narrow, f32
+    # and bf16); gmm_bwd_dw's FMA loop (gmm_kernel) is only printed
+    hmma = hmma_counts(_build._target("moe_gmm"))
+    for n, c in sorted(hmma.items()):
+        print(f"  sass: {n}: {c} HMMA")
+    mma = {n: c for n, c in hmma.items() if n.startswith("gmm_mma_")}
+    spilled = [n for n, sp, _ in ptxas_summary(libs.log.get("moe_gmm", ""))
+               if n.startswith("gmm_mma_") and sp]
+    if len(mma) != 2 * 2 * len(gm._DTYPE_CODE) or not all(mma.values()) \
+            or spilled:
+        raise SystemExit(f"grouped matmul: HMMA counts {mma}, spilling "
+                         f"{spilled}")
 
     print("[kernels] against the plain versions", flush=True)
     results = check_kernels(fa)

@@ -61,11 +61,16 @@ def _close(got, want, tol):
 
 # ------------------------------------------------------ grouped matmul
 # (E, C, D, F) and Pallas blocks (c, f, d) that divide them, with more
-# than one block along every axis, as tests/test_kernels.py picks them
+# than one block along every axis, as tests/test_kernels.py picks them;
+# the last two at the edges of the CUDA kernel's tiles: the path's token
+# count cut to 2 x 11, D and F no multiple of its 32-deep R tile, F no
+# multiple of 8
 @pytest.mark.parametrize("e,c,d,f,blk", [
     (1, 16, 64, 32, (8, 16, 32)),
     (3, 32, 48, 24, (16, 8, 16)),
     (2, 24, 128, 40, (8, 8, 64)),
+    (2, 22, 40, 24, (11, 8, 20)),
+    (1, 22, 36, 20, (11, 10, 12)),
 ])
 def test_plain_gmm_matches_pallas_interpret(e, c, d, f, blk):
     x, w = _x(e, e, c, d), _x(e + 10, e, d, f, scale=0.05)
@@ -93,9 +98,12 @@ def test_plain_gmm_bf16_matches_reference_oracle():
     _close(got, jref.grouped_matmul(jx, jw).astype(jnp.float32), 2e-2)
 
 
-# ragged shapes (no power-of-two tile divides them), as the kernel takes
+# ragged shapes (no power-of-two tile divides them), as the kernel takes;
+# the last three cut the CUDA kernel's 128-row tile, its 32-deep R tile
+# and (N 20) its n8 column tiles
 @pytest.mark.parametrize("e,m,k,n", [(3, 5, 33, 17), (2, 42, 16, 24),
-                                     (1, 1, 7, 3)])
+                                     (1, 1, 7, 3), (2, 22, 40, 20),
+                                     (1, 130, 36, 12), (2, 150, 48, 20)])
 def test_gmm_backward_matches_autograd_and_vjp(e, m, k, n):
     x, w, dy = _x(1, e, m, k), _x(2, e, k, n), _x(3, e, m, n)
     tx = torch.from_numpy(x).requires_grad_(True)
