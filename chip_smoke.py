@@ -4,20 +4,22 @@
 
 Phases (each failure exits non-zero):
   1. card: name and power limit, torch and CUDA versions, kernel build,
-     each kernel instance's registers and spills (ptxas); every attention
-     backward instance and every tensor-core instance of the grouped
-     matmul (gmm_fwd, gmm_bwd_dx) must issue tensor-core instructions
-     (HMMA in its SASS) and spill nothing;
+     each kernel instance's registers and spills (ptxas); every
+     attention instance (forward, dq, dkdv) and every grouped matmul
+     instance (gmm_mma_kernel: three products, wide and narrow) must
+     issue tensor-core instructions (HMMA in its SASS) and spill
+     nothing, and no other kernel may be in those two libraries;
   2. kernels: every CUDA kernel of the main paths against its plain
      PyTorch version on the card (tolerances below; the kernels' outputs
      are allocated filled with NaN, so one left unwritten fails),
-     bitwise repeats, and times: the kernel, the plain version, and one PyTorch call as
-     a yardstick only, never called by the port
+     bitwise repeats, and times: the kernel, the plain version, and one
+     PyTorch call as a yardstick only, never called by the port
      (scaled_dot_product_attention for attention, with the window as a
-     mask where there is one; torch.bmm for the grouped expert matmul,
-     whose gmm_fwd and gmm_bwd_dx must be faster than it at both of the
-     MoE path's shapes; none for the RG-LRU scan and the chunkwise
-     mLSTM);
+     mask where there is one, whose forward flash_fwd must beat at the
+     three paths' shapes; torch.bmm for the grouped expert matmul, which
+     each of its three kernels must beat at both of the MoE path's
+     shapes; both timed in turns with the kernel; none for the RG-LRU
+     scan and the chunkwise mLSTM);
   3. reference: the engine on the card against the same engine on the
      CPU (plain versions) at the campaign's tiny GPT and at the reduced
      Qwen1.5-MoE config, and make_train_step on the card against the
@@ -89,12 +91,12 @@ SCAN_F32_TOL, SCAN_BF16_TOL = 1e-5, 2e-2
 # xLSTM: losses and grad norms (f32; sums in other orders over two
 # steps)
 STEP_REF_TOL = 1e-4
-# first loss of the GPT-medium slice, pinned to the d <= 128 attention
-# kernels as they were before the window and d = 256 came in
+# first loss of the GPT-medium slice, pinned to the attention forward
+# on the tensor cores (fwd_kernel, d 64 f32)
 GPT_FIRST_LOSS = 11.067411184310913
 # first loss of the Qwen MoE slice, pinned to the grouped matmul's
-# tensor-core gmm_fwd and gmm_bwd_dx (gmm_mma_kernel) beside gmm_bwd_dw's
-# FMA loop
+# gmm_fwd (gmm_mma_kernel, 128 x 64 tiles) and the attention forward
+# (fwd_kernel, d 128 f32), both on the tensor cores
 MOE_FIRST_LOSS = 12.318589687347412
 # H100 SXM peaks (NVIDIA data sheet, dense), HBM3 bandwidth. f32: the
 # TF32 tensor-core rate of 495 TFLOP/s over the three products that keep
@@ -356,15 +358,27 @@ def check_kernels(fa):
 
 
 def time_attention(fa, results, shape, q, k, v, do, o, lse, sc):
+    """Times of the three kernels, the plain versions and SDPA at one of
+    the paths' shapes; flash_fwd and SDPA's forward are timed in turns,
+    and the kernel must be faster."""
     causal, win, reps = shape["causal"], shape["window"], 10
-    fwd = lambda: fa.flash_fwd(q, k, v, causal, sc, win)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     common = (shape["bh"], shape["s"], shape["d"],
               0 if shape["dtype"] == torch.float32 else 1, int(causal),
               win, sc)
     ptr = lambda *ts: [t.data_ptr() for t in ts]
-    results["flash_fwd"]["ms"] = time_ms(fwd, reps)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # the window as a boolean mask (True = visible); no mask when causal
+    # alone says it all
+    mask = None
+    if win:
+        mask = fa._mask(shape["s"], shape["s"], causal, win, q.device)
+    lib = lambda a, b, c: sdpa(a, b, c, attn_mask=mask,
+                               is_causal=causal and mask is None, scale=sc)
+    results["flash_fwd"]["ms"], results["flash_fwd"]["library_ms"] = \
+        time_pair_ms(lambda: fa.flash_fwd(q, k, v, causal, sc, win),
+                     lambda: lib(q, k, v), 2 * reps)
     # in the order flash_bwd runs them: dq writes the delta dkdv reads
     results["flash_bwd_dq"]["ms"] = time_ms(lambda: fa.launch(
         "flash_bwd_dq", *ptr(q, k, v, o, lse, do, dq, delta), *common,
@@ -380,16 +394,6 @@ def time_attention(fa, results, shape, q, k, v, do, o, lse, sc):
     # the plain backward computes dq, dk and dv in one pass
     results["flash_bwd_dkdv"]["plain_ms"] = plain_bwd
     results["flash_bwd_dq"]["plain_ms"] = plain_bwd
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    # the window as a boolean mask (True = visible); no mask when causal
-    # alone says it all
-    mask = None
-    if win:
-        mask = fa._mask(shape["s"], shape["s"], causal, win, q.device)
-    lib = lambda a, b, c: sdpa(a, b, c, attn_mask=mask,
-                               is_causal=causal and mask is None, scale=sc)
-    results["flash_fwd"]["library_ms"] = time_ms(lambda: lib(q, k, v),
-                                                 reps)
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
     out = lib(ql, kl, vl)
     # SDPA's backward yields dq, dk and dv from one call
@@ -411,6 +415,12 @@ def time_attention(fa, results, shape, q, k, v, do, o, lse, sc):
     print(f"  backward pair at d={shape['d']}: flash_bwd_dq + "
           f"flash_bwd_dkdv {pair:.4f} ms, SDPA backward {lib_bwd:.4f} ms, "
           f"ratio {pair / lib_bwd:.3f}", flush=True)
+    fwd = results["flash_fwd"]
+    print(f"  forward at d={shape['d']}: flash_fwd / SDPA forward "
+          f"{fwd['ms'] / fwd['library_ms']:.3f}", flush=True)
+    if fwd["ms"] >= fwd["library_ms"]:
+        raise SystemExit(f"flash_fwd not faster than SDPA's forward at "
+                         f"{shape}")
 
 
 def gmm_wide(a, b, a_row: int, b_row: int) -> bool:
@@ -425,10 +435,10 @@ def gmm_wide(a, b, a_row: int, b_row: int) -> bool:
 def gmm_instances(fn, tries: int = 3):
     """The grouped-matmul kernel instances `fn` launches, in launch
     order, named as instance_name names them (`gmm_mma_kernel<dtype, TA,
-    TB, WIDE>`, `gmm_kernel<dtype, TA, TB>`), from the profiler's
-    kernel names, mangled or not. The profiler has come back with no
-    device event at all for three launches of a few microseconds, so an
-    empty profile is taken again, up to `tries` times."""
+    TB, WIDE>`), from the profiler's kernel names, mangled or not. The
+    profiler has come back with no device event at all for three
+    launches of a few microseconds, so an empty profile is taken again,
+    up to `tries` times."""
     from torch.profiler import ProfilerActivity, profile
     words = {"float": "f32", "__nv_bfloat16": "bf16", "false": "0",
              "true": "1"}
@@ -458,8 +468,9 @@ def check_gmm(gm):
     that cut every edge of gmm_mma_kernel's tile (rows no multiple of
     MMA_BM = 128, reductions no multiple of the 32 f32 / 64 bf16 R tile,
     columns no multiple of 8), with the wide and the narrow copies;
-    says which instance each kernel ran. Returns the gate/up-shape
-    results by kernel name, the down shape's under "shapes"."""
+    each kernel must run the instance the host's rule picks. Returns
+    the gate/up-shape results by kernel name, the down shape's under
+    "shapes"."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [dict(GMM_SLICE), dict(GMM_DOWN),
              dict(e=3, m=5, k=33, n=17, dtype=f32),
@@ -494,11 +505,11 @@ def check_gmm(gm):
         repeat = all(torch.equal(a, b) for a, b in zip(got, again))
         del again
         ran = gmm_instances(run)
-        wide = {"gmm_fwd": gmm_wide(x, w, k, n),
-                "gmm_bwd_dx": gmm_wide(dy, w, n, n)}
-        want_ran = [f"gmm_mma_kernel<{'f32' if dt == f32 else 'bf16'}, 0, "
-                    f"{tb}, {int(wide[nm])}>"
-                    for nm, tb in (("gmm_fwd", 0), ("gmm_bwd_dx", 1))]
+        # (TA, TB, wide) of each product, in launch order
+        inst = ((0, 0, gmm_wide(x, w, k, n)), (0, 1, gmm_wide(dy, w, n, n)),
+                (1, 0, gmm_wide(x, dy, k, n)))
+        want_ran = [f"gmm_mma_kernel<{'f32' if dt == f32 else 'bf16'}, {ta}, "
+                    f"{tb}, {int(wide)}>" for ta, tb, wide in inst]
         tol = GMM_F32_TOL if dt == f32 else GMM_BF16_TOL
         errs, rels = {}, {}
         for name, g, r in zip(GMM, got, want):
@@ -515,9 +526,9 @@ def check_gmm(gm):
             + ", ".join(ran), flush=True)
         if not repeat or not all(rels[nm] <= tol for nm in GMM):
             raise SystemExit(f"grouped matmul check failed at {label}")
-        if ran[:2] != want_ran or len(ran) != 3:
+        if ran != want_ran:
             raise SystemExit(f"grouped matmul at {label} ran {ran}, not "
-                             f"{want_ran} and gmm_bwd_dw's")
+                             f"{want_ran}")
         if c in (GMM_SLICE, GMM_DOWN):
             timed = {nm: {"max_abs_err": errs[nm]} for nm in GMM}
             time_gmm(gm, timed, c, x, w, dy)
@@ -533,8 +544,8 @@ def check_gmm(gm):
 
 def time_gmm(gm, results, shape, x, w, dy):
     """Times of the three kernels, their plain versions and torch.bmm at
-    one of the path's shapes, each kernel and torch.bmm in turns;
-    gmm_fwd and gmm_bwd_dx must be faster than torch.bmm."""
+    one of the path's shapes, each kernel and torch.bmm in turns; each
+    kernel must be faster than torch.bmm."""
     reps = 10
     calls = {
         "gmm_fwd": (lambda: gm.gmm_fwd(x, w), lambda: gm.gmm_fwd_ref(x, w),
@@ -557,8 +568,7 @@ def time_gmm(gm, results, shape, x, w, dy):
               f"ms (kernel / bmm {r['ms'] / r['library_ms']:.3f}), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}); "
               f"{work[0] / r['ms'] / 1e9:.2f} TFLOP/s", flush=True)
-    slow = [n for n in ("gmm_fwd", "gmm_bwd_dx")
-            if results[n]["ms"] >= results[n]["library_ms"]]
+    slow = [n for n in GMM if results[n]["ms"] >= results[n]["library_ms"]]
     if slow:
         raise SystemExit(f"{slow} not faster than torch.bmm at {shape}")
 
@@ -851,12 +861,29 @@ def hmma_counts(lib: Path):
     return counts
 
 
+def tensor_core_instances(libs, lib: str, kernels, want: int) -> None:
+    """Fails unless the library `lib` holds exactly `want` kernel
+    instances, all of the kernels named in `kernels`, each with HMMA in
+    its SASS and no spill bytes."""
+    from repro_torch.kernels import _build
+    hmma = hmma_counts(_build._target(lib))
+    for n, c in sorted(hmma.items()):
+        print(f"  sass: {n}: {c} HMMA")
+    spilled = [n for n, sp, _ in ptxas_summary(libs.log.get(lib, ""))
+               if sp]
+    others = [n for n in hmma if n.split("<")[0] not in kernels]
+    if len(hmma) != want or not all(hmma.values()) or spilled or others:
+        raise SystemExit(f"{lib}: HMMA counts {hmma} (want {want} "
+                         f"instances of {kernels}, each with HMMA), "
+                         f"spilling {spilled}, others {others}")
+
+
 # device-time groups of a step's breakdown, matched in this order
 GROUPS = (("mLSTM kernels", r"mlstm_(fwd|bwd_dqdk|bwd_dv)_kernel"),
           ("RG-LRU scan kernels", r"rglru_(fwd|bwd)_kernel"),
           ("attention kernels", r"\bfwd_kernel|bwd_dkdv_kernel|"
                                 r"bwd_dq_kernel"),
-          ("grouped matmul kernels", r"gmm_(mma_)?kernel"),
+          ("grouped matmul kernels", r"gmm_mma_kernel"),
           ("matmul (cuBLAS)", r"gemm|sm90_xmma|cutlass|nvjet"))
 # device activity only: the breakdown reads kernels, and a launch-bound
 # step (the sLSTM loop) records millions of host events besides
@@ -1211,31 +1238,14 @@ def main() -> int:
     for lib in _build.SIGNATURES:
         for _, _, line in ptxas_summary(libs.log.get(lib, "")):
             print(f"  ptxas: {line}")
-    # the attention backward is built for the tensor cores: every instance
-    # issues HMMA and none spills
-    hmma = hmma_counts(_build._target("flash_attention"))
-    bwd = {n: c for n, c in hmma.items() if n.startswith("bwd_")}
-    for n, c in sorted(bwd.items()):
-        print(f"  sass: {n}: {c} HMMA")
-    spilled = [n for n, sp, _ in ptxas_summary(
-        libs.log.get("flash_attention", "")) if n.startswith("bwd_") and sp]
-    # two kernels for each head dim and dtype
-    if len(bwd) != 2 * len(fa.HEAD_DIMS) * len(fa._DTYPE_CODE) or \
-            not all(bwd.values()) or spilled:
-        raise SystemExit(f"attention backward: HMMA counts {bwd}, "
-                         f"spilling {spilled}")
-    # so are gmm_fwd and gmm_bwd_dx (gmm_mma_kernel, wide and narrow, f32
-    # and bf16); gmm_bwd_dw's FMA loop (gmm_kernel) is only printed
-    hmma = hmma_counts(_build._target("moe_gmm"))
-    for n, c in sorted(hmma.items()):
-        print(f"  sass: {n}: {c} HMMA")
-    mma = {n: c for n, c in hmma.items() if n.startswith("gmm_mma_")}
-    spilled = [n for n, sp, _ in ptxas_summary(libs.log.get("moe_gmm", ""))
-               if n.startswith("gmm_mma_") and sp]
-    if len(mma) != 2 * 2 * len(gm._DTYPE_CODE) or not all(mma.values()) \
-            or spilled:
-        raise SystemExit(f"grouped matmul: HMMA counts {mma}, spilling "
-                         f"{spilled}")
+    # every attention instance (forward, dq, dkdv) and every grouped
+    # matmul instance (three products, wide and narrow, f32 and bf16) is
+    # built for the tensor cores: each issues HMMA and none spills
+    tensor_core_instances(libs, "flash_attention",
+                          ("fwd_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel"),
+                          3 * len(fa.HEAD_DIMS) * len(fa._DTYPE_CODE))
+    tensor_core_instances(libs, "moe_gmm", ("gmm_mma_kernel",),
+                          3 * 2 * len(gm._DTYPE_CODE))
 
     print("[kernels] against the plain versions", flush=True)
     results = check_kernels(fa)

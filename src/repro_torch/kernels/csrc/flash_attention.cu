@@ -7,12 +7,12 @@
 // the backward is two kernels of its own, so training never leaves the
 // hand-written path.
 //
-//   flash_fwd       one block per (q tile, bh); loops over kv tiles with
-//                   an f32 running max m, denominator l and accumulator,
-//                   skipping kv tiles wholly above the diagonal when
-//                   causal and wholly below the window. Writes o (input
-//                   dtype) and lse = m + log(max(l, 1e-30)) (f32,
-//                   (BH, S)).
+//   flash_fwd       one block per (bh, q tile), the heaviest causal q
+//                   tiles issued first; loops over the kv tiles its rows
+//                   see with an f32 running max m, denominator l and
+//                   accumulator: S = Q K^T, P = exp(S*scale - m),
+//                   O += P V. Writes o (input dtype) and
+//                   lse = m + log(max(l, 1e-30)) (f32, (BH, S)).
 //   flash_bwd_dq    runs first: one block per (bh, q tile), the last
 //                   (heaviest causal) q tiles issued first. Computes
 //                   D_i = rowsum(dO_i * O_i) once for its rows and writes
@@ -43,20 +43,13 @@
 // backward against a few hundred bytes per row, far above the card's
 // bytes-to-FLOP line, so the bound is arithmetic.
 //
-// The forward does its two products with plain f32 FMA loops over
-// shared-memory tiles (BQ = 64 rows for D <= 128, 32 for D = 256; each of
-// 128 threads a BQ/16 x BQ/8 register tile of scores and a BQ/16 x D/8
-// tile of the accumulator), stored transposed with a stride of BQ + 1
-// floats so that every access is free of bank conflicts; it runs at
-// CUDA-core rate at best.
-//
-// The backward runs every product on the tensor cores through warp-level
-// mma.sync, accumulating in f32:
+// Every product runs on the tensor cores through warp-level mma.sync,
+// accumulating in f32:
 //  - bf16: m16n8k16 on bf16 operands, which stay bf16 in shared memory.
-//    P and dS, the A operands of the dV, dK and dQ products, are split
-//    into a bf16 high and low part, two products each: rounded to bf16
-//    once, they moved outputs above 4 by a bf16 step there (2^-5), past
-//    the check's 2e-2.
+//    P and dS, the A operands of the O, dV, dK and dQ products, are
+//    split into a bf16 high and low part, two products each: rounded to
+//    bf16 once, they moved outputs above 4 by a bf16 step there (2^-5),
+//    past the check's 2e-2.
 //  - f32: three m16n8k8 TF32 products a step (3xTF32). Each operand x is
 //    split in registers as it is loaded, big = tf32(x) and small = x -
 //    big, and big*small + small*big + big*big keeps close to f32
@@ -66,29 +59,38 @@
 //  - The tensor cores truncate each product's sum into their
 //    accumulator, a bias that grows with the number of sums: over all of
 //    a sequence's rows into one accumulator it moved dV past the f32
-//    check's 1e-4 at d 128, S 2048. So dV, dK and dQ sum each walked
+//    check's 1e-4 at d 128, S 2048. So O, dV, dK and dQ sum each walked
 //    tile into a fresh accumulator and add that to the running one in
 //    f32, rounding to nearest.
-// A warp owns 16 rows of the block's own tile (q rows in dq, kv rows in
-// dkdv), so the score products put those rows in the MMA's M dimension
-// (S^T = K Q^T in dkdv) and the accumulator of S is already the A operand
-// of the product that follows: in bf16 two n8 accumulators pack into one
-// k16 A fragment; in TF32 the accumulator's columns (2t, 2t + 1) serve as
-// the A fragment's k = (t, t + 4), and B is read from the matching rows.
-// Where dK and dV outgrow a thread's registers (2 x 16 x 256 f32 a warp
-// at D = 256), WD = 2 warps share each 16 rows, each computes S and dP
-// for half of the walked columns and owns half of the output columns,
-// and P and dS pass through shared memory between them. Tiles and warps
-// per instance are in bwd_tiles(): 64-row own tiles and 4 warps up to
-// D = 64, 8 warps above, walked tiles of 16 to 64 rows as the registers
-// allow.
-// The walked tiles (Q, dO, lse, D in dkdv; K, V in dq) come in by
-// cp.async into a ring of two stages, so the next tile's copy runs under
-// the current tile's products; the block's own tiles load once, and rows
-// at or beyond S arrive as zeros. Shared-memory rows are padded by 16
-// bytes, so ldmatrix and the scalar TF32 fragment loads are free of bank
-// conflicts. Only tiles that cross the diagonal, the window's edge or S
-// are masked element by element; tiles wholly outside are skipped.
+// A warp owns 16 rows of the block's own tile (q rows in the forward and
+// dq, kv rows in dkdv), so the score products put those rows in the
+// MMA's M dimension (S^T = K Q^T in dkdv) and the accumulator of S is
+// already the A operand of the product that follows: in bf16 two n8
+// accumulators pack into one k16 A fragment; in TF32 the accumulator's
+// columns (2t, 2t + 1) serve as the A fragment's k = (t, t + 4), and B
+// is read from the matching rows.
+// The forward keeps its softmax online in that layout: lane (g, t) holds
+// rows g and g + 8, and for each a running max m of the scores times
+// scale * log2(e), its share of the row's denominator l (the quad adds
+// the four shares at the end) and the output accumulator, which is
+// rescaled by exp2(m_old - m_new) before each tile's P V is added.
+// Where the outputs outgrow a thread's registers (dK and dV, 2 x 16 x
+// 256 f32 a warp at D = 256; the bf16 forward's O at D = 256), WD = 2
+// warps share each 16 rows, each computes S (and dP) for half of the
+// walked columns and owns half of the output columns, and P (and dS; in
+// the forward also each row's max and denominator) pass through shared
+// memory between them. Tiles and warps per instance are in
+// attn_tiles(): 64-row own tiles and 4 warps up to D = 64, 8 warps
+// above, walked tiles of 16 to 64 rows as the registers allow; the
+// forward takes dq's but at D = 256 in bf16.
+// The walked tiles (Q, dO, lse, D in dkdv; K, V in the forward and dq)
+// come in by cp.async into a ring of two stages, so the next tile's copy
+// runs under the current tile's products; the block's own tiles load
+// once, and rows at or beyond S arrive as zeros. Shared-memory rows are
+// padded by 16 bytes, so ldmatrix and the scalar TF32 fragment loads are
+// free of bank conflicts. Only tiles that cross the diagonal, the
+// window's edge or S are masked element by element; tiles wholly outside
+// are skipped, by the block, or by a warp none of whose rows sees them.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,12 +102,10 @@
 
 namespace {
 
-constexpr int NT = 128;         // forward threads per block: 16 x 8
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
-
-// Rows per tile (q and kv alike) for head dim D.
-template <int D> constexpr int tile_rows() { return D > 128 ? 32 : 64; }
 
 // Whether key kj is visible to query qi.
 __device__ __forceinline__ bool visible(int qi, int kj, int S, int causal,
@@ -113,147 +113,10 @@ __device__ __forceinline__ bool visible(int qi, int kj, int S, int causal,
   return kj < S && (!causal || kj <= qi) && (!window || qi - kj < window);
 }
 
-// First kv tile any query of the q tile starting at q0 can see.
-__device__ __forceinline__ int first_kv_tile(int q0, int window, int bq) {
-  return window ? max(0, q0 - window + 1) / bq : 0;
-}
-
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Rows [r0, r0 + BQ) of an (S, D) matrix into t[d * LD + r] as f32;
-// rows >= S read as zero. Neighbouring threads read neighbouring d.
-template <typename T, int D, int BQ>
-__device__ __forceinline__ void load_t(float* t, const T* g, int r0,
-                                       int S) {
-  constexpr int LD = BQ + 1;
-  for (int idx = threadIdx.x; idx < BQ * D; idx += NT) {
-    const int r = idx / D, d = idx % D, row = r0 + r;
-    t[d * LD + r] = row < S ? to_f(g[(size_t)row * D + d]) : 0.f;
-  }
-}
-
-template <typename T, int D, int BQ>
-__global__ void __launch_bounds__(NT)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, T* __restrict__ o,
-           float* __restrict__ lse, int S, int causal, int window,
-           float scale) {
-  constexpr int DC = D / 8, LD = BQ + 1, RQ = BQ / 16, CK = BQ / 8;
-  extern __shared__ float sm[];
-  float* Qt = sm;
-  float* Kt = Qt + D * LD;
-  float* Vt = Kt + D * LD;
-  float* Ps = Vt + D * LD;                 // Ps[c * LD + r]
-  const int bh = blockIdx.y, qt = blockIdx.x, q0 = qt * BQ;
-  const size_t base = (size_t)bh * S * D;
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
-
-  load_t<T, D, BQ>(Qt, q + base, q0, S);
-  float acc[RQ][DC], m[RQ], l[RQ];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-  const int n_kv = (S + BQ - 1) / BQ;
-  const int kv_end = causal ? min(n_kv, qt + 1) : n_kv;
-  for (int kt = first_kv_tile(q0, window, BQ); kt < kv_end; ++kt) {
-    const int k0 = kt * BQ;
-    __syncthreads();                       // previous tiles consumed
-    load_t<T, D, BQ>(Kt, k + base, k0, S);
-    load_t<T, D, BQ>(Vt, v + base, k0, S);
-    __syncthreads();
-    float s[RQ][CK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < CK; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[RQ], b[CK];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) a[i] = Qt[d * LD + ty * RQ + i];
-#pragma unroll
-      for (int j = 0; j < CK; ++j) b[j] = Kt[d * LD + tx + 8 * j];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < CK; ++j) s[i][j] += a[i] * b[j];
-    }
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int qi = q0 + ty * RQ + i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const int kj = k0 + tx + 8 * j;
-        float x = s[i][j] * scale;
-        if (!visible(qi, kj, S, causal, window)) x = NEG_INF;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        Ps[(tx + 8 * j) * LD + ty * RQ + i] = p;
-      }
-      rs += __shfl_xor_sync(FULL, rs, 1);
-      rs += __shfl_xor_sync(FULL, rs, 2);
-      rs += __shfl_xor_sync(FULL, rs, 4);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < BQ; ++c) {
-      float p[RQ];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) p[i] = Ps[c * LD + ty * RQ + i];
-#pragma unroll
-      for (int dc = 0; dc < DC; ++dc) {
-        const float vv = Vt[(tx + 8 * dc) * LD + c];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) acc[i][dc] += p[i] * vv;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int r = q0 + ty * RQ + i;
-    if (r >= S) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int dc = 0; dc < DC; ++dc)
-      o[base + (size_t)r * D + tx + 8 * dc] = from_f<T>(acc[i][dc] / den);
-    if (tx == 0) lse[(size_t)bh * S + r] = m[i] + logf(den);
-  }
-}
-
-// ---------------------------------------------------------------- backward
-
-constexpr float LOG2E = 1.4426950408889634f;
 
 // acc[NC / 8][4] = X Y^T over D for one warp: X its 16 rows of the own
 // tile (at xs), Y NC rows of the walked tile (at ys), rows LD elements
@@ -412,20 +275,24 @@ __device__ __forceinline__ void store_rows(T* out,
   }
 }
 
-// Tiles and warps of a backward instance: BM rows of the block's own tile
+// Tiles and warps of an instance: BM rows of the block's own tile
 // (16 a warp row), BN rows of each walked tile, NW warps in NW / WD rows
 // by WD groups of output columns. The walked tile is as long as the
 // registers allow without spilling: f32 A fragments take twice bf16's
 // registers (big and small parts), and bf16 dkdv at D = 128 holds the
 // high and low parts of P and dS beside 128 accumulators a thread. At
-// D = 256, dK and dV take two column groups (WD = 2).
+// D = 256, dK and dV take two column groups (WD = 2), and so does the
+// bf16 forward's O: with 128 accumulators a thread it spilled at every
+// walked tile from 16 to 64 rows.
 struct Tiles { int bm, bn, nw, wd; };
+enum Kernel { FWD, DQ, DKDV };
 
-template <typename T, int D, bool DKDV> constexpr Tiles bwd_tiles() {
+template <typename T, int D, Kernel K> constexpr Tiles attn_tiles() {
   constexpr bool f32 = std::is_same<T, float>::value;
   if (D <= 64) return {64, f32 ? 32 : 64, 4, 1};
-  if (D == 128) return {128, f32 ? 32 : DKDV ? 16 : 64, 8, 1};
-  if (DKDV) return f32 ? Tiles{32, 32, 4, 2} : Tiles{64, 32, 8, 2};
+  if (D == 128) return {128, f32 ? 32 : K == DKDV ? 16 : 64, 8, 1};
+  if (K == DKDV) return f32 ? Tiles{32, 32, 4, 2} : Tiles{64, 32, 8, 2};
+  if (K == FWD && !f32) return {64, 64, 8, 2};
   return f32 ? Tiles{64, 16, 4, 1} : Tiles{128, 32, 8, 1};
 }
 
@@ -434,6 +301,182 @@ template <typename T, int D, bool DKDV> constexpr Tiles bwd_tiles() {
 // so do the TF32 B loads of outer() (rows 2t apart).
 template <typename T, int D> __host__ __device__ constexpr int tile_ld() {
   return D + 16 / (int)sizeof(T);
+}
+
+// Forward: each warp owns 16 q rows of the block's BM and walks the kv
+// tiles [kv_lo, kv_hi) its block sees, BN rows of K and V at a time:
+// S = Q K^T (score), the online softmax of the note at the head of the
+// file, O += P V (outer). With WD = 2 the two warps of a row group each
+// take half of the walked columns of S and half of the output columns
+// of O, and pass their halves of each row's max and of P through shared
+// memory. A tile none of whose keys a row group sees is skipped by its
+// warps alone.
+template <typename T, int D, int BM, int BN, int NW, int WD>
+__global__ void __launch_bounds__(NW * 32, 1)
+fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, T* __restrict__ o,
+           float* __restrict__ lse, int S, int causal, int window,
+           float scale) {
+  constexpr int WM = NW / WD, LD = tile_ld<T, D>(), NTH = NW * 32;
+  constexpr int BNW = BN / WD, DW = D / WD, LDP = BN + 8;
+  static_assert(BM == 16 * WM && BNW % 16 == 0 && DW % 16 == 0, "tiles");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* KV = Qs + BM * LD;                    // stage s: K at KV + 2 s BN LD
+  float* Ps = reinterpret_cast<float*>(KV + 4 * BN * LD);  // WD > 1: P
+  float* Xs = Ps + BM * LDP;               // WD > 1: [wd][row] max, then l
+  const int bh = blockIdx.x, n_qt = (S + BM - 1) / BM;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * BM;   // heaviest first
+  const size_t base = (size_t)bh * S * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, wm = warp % WM, wd = warp / WM;
+  const int n_kv = (S + BN - 1) / BN;
+  const int kv_lo = window ? max(0, q0 - window + 1) / BN : 0;
+  const int kv_hi = causal ? min(n_kv, (min(q0 + BM, S) - 1) / BN + 1)
+                           : n_kv;
+
+  load_rows<T, D, BM, LD, NTH>(Qs, q + base, q0, S);
+  if (kv_lo < kv_hi) {
+    load_rows<T, D, BN, LD, NTH>(KV, k + base, kv_lo * BN, S);
+    load_rows<T, D, BN, LD, NTH>(KV + BN * LD, v + base, kv_lo * BN, S);
+  }
+  cp_commit();
+
+  const int r0 = q0 + wm * 16, pr = wm * 16 + g;
+  const float sl2 = scale * LOG2E;
+  // rows g and g + 8: running max (base 2), this lane's share of l
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[DW / 8][4] = {};
+  for (int it = kv_lo; it < kv_hi; ++it) {
+    const int st = (it - kv_lo) & 1;
+    if (it + 1 < kv_hi) {
+      T* nxt = KV + (st ^ 1) * 2 * BN * LD;
+      load_rows<T, D, BN, LD, NTH>(nxt, k + base, (it + 1) * BN, S);
+      load_rows<T, D, BN, LD, NTH>(nxt + BN * LD, v + base, (it + 1) * BN,
+                                   S);
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const T* Ks = KV + st * 2 * BN * LD;
+    const T* Vs = Ks + BN * LD;
+    const int k0 = it * BN, c0 = k0 + wd * BNW;
+    const bool none = r0 >= S || (causal && k0 > r0 + 15) ||
+                      (window && r0 - (k0 + BN - 1) >= window);
+    const bool edge = (causal && k0 + BN - 1 > r0) ||
+                      (window && r0 + 15 - k0 >= window) || k0 + BN > S;
+    float s[BNW / 8][4], mx[2] = {NEG_INF, NEG_INF};
+    if (!none) {
+      score<T, D, LD, BNW>(s, Qs + wm * 16 * LD, Ks + wd * BNW * LD, lane);
+#pragma unroll
+      for (int j = 0; j < BNW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (edge && !visible(r0 + g + 8 * (e >> 1),
+                               c0 + 8 * j + 2 * t + (e & 1), S, causal,
+                               window))
+            s[j][e] = NEG_INF;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 2));
+        if (WD > 1 && t == 0) Xs[wd * BM + pr + 8 * h] = mx[h];
+      }
+    }
+    if constexpr (WD > 1) {
+      __syncthreads();
+      if (!none) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          mx[h] = fmaxf(mx[h], Xs[(wd ^ 1) * BM + pr + 8 * h]);
+      }
+    }
+    float corr[2] = {1.f, 1.f};
+    if (!none) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mn = fmaxf(m[h], mx[h] * sl2);
+        corr[h] = exp2f(m[h] - mn);
+        m[h] = mn;
+        l[h] *= corr[h];
+      }
+#pragma unroll
+      for (int j = 0; j < BNW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // an invisible key counts 0 even where the row has seen no key
+          // yet (m = NEG_INF, so exp2 of the difference would be 1)
+          const float p = edge && s[j][e] == NEG_INF
+                              ? 0.f
+                              : exp2f(fmaf(s[j][e], sl2, -m[e >> 1]));
+          l[e >> 1] += p;
+          s[j][e] = p;
+        }
+      if constexpr (WD > 1) {
+#pragma unroll
+        for (int j = 0; j < BNW / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(Ps + (pr + 8 * h) * LDP + wd * BNW +
+                                       8 * j + 2 * t) =
+                make_float2(s[j][2 * h], s[j][2 * h + 1]);
+      }
+    }
+    if constexpr (WD > 1) __syncthreads();
+    if (!none) {
+#pragma unroll
+      for (int j = 0; j < DW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+      if constexpr (WD == 1) {
+        outer<T, BN, D, LD>(acc, s, Vs, lane);
+      } else {
+        float rows[BN / 8][4];             // the full rows of P
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 a = *reinterpret_cast<const float2*>(
+                Ps + (pr + 8 * h) * LDP + 8 * j + 2 * t);
+            rows[j][2 * h] = a.x;
+            rows[j][2 * h + 1] = a.y;
+          }
+        outer<T, BN, DW, LD>(acc, rows, Vs + wd * DW, lane);
+      }
+    }
+    __syncthreads();                       // stage st free for it + 2
+  }
+  cp_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(FULL, l[h], 1);
+    l[h] += __shfl_xor_sync(FULL, l[h], 2);
+    if (WD > 1 && t == 0) Xs[wd * BM + pr + 8 * h] = l[h];
+  }
+  if constexpr (WD > 1) {
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] += Xs[(wd ^ 1) * BM + pr + 8 * h];
+  }
+  // 1 / den by the approximate reciprocal (within 2 ulp): an IEEE
+  // division's slow path is a call, around which the live accumulator
+  // spills
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float den = fmaxf(l[h], 1e-30f);
+    inv[h] = __fdividef(1.f, den);
+    const int row = r0 + g + 8 * h;
+    if (wd == 0 && t == 0 && row < S)
+      lse[(size_t)bh * S + row] = m[h] * LN2 + logf(den);
+  }
+#pragma unroll
+  for (int j = 0; j < DW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= inv[e >> 1];
+  store_rows<T, D, DW>(o + base, acc, r0, wd * DW, S, 1.f, lane);
 }
 
 template <typename T, int D, int BM, int BN, int NW>
@@ -677,13 +720,15 @@ template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
         int bh, int S, int causal, int window, float scale,
         cudaStream_t st) {
-  constexpr int BQ = tile_rows<D>(), LD = BQ + 1;
-  const size_t smem = (3 * D * LD + BQ * LD) * sizeof(float);
-  auto kern = fwd_kernel<T, D, BQ>;
+  constexpr Tiles c = attn_tiles<T, D, FWD>();
+  const size_t smem =
+      (size_t)(c.bm + 4 * c.bn) * tile_ld<T, D>() * sizeof(T) +
+      (c.wd > 1 ? (c.bm * (c.bn + 8) + 2 * c.bm) * sizeof(float) : 0);
+  auto kern = fwd_kernel<T, D, c.bm, c.bn, c.nw, c.wd>;
   if (int rc = launch_prep(kern, smem)) return rc;
-  dim3 grid((S + BQ - 1) / BQ, bh);
-  kern<<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
-                               (T*)o, lse, S, causal, window, scale);
+  dim3 grid(bh, (S + c.bm - 1) / c.bm);
+  kern<<<grid, c.nw * 32, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
+                                      (T*)o, lse, S, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -691,7 +736,7 @@ template <typename T, int D>
 int dkdv(const void* q, const void* k, const void* v, const float* delta,
          const float* lse, const void* dout, void* dk, void* dv, int bh,
          int S, int causal, int window, float scale, cudaStream_t st) {
-  constexpr Tiles c = bwd_tiles<T, D, true>();
+  constexpr Tiles c = attn_tiles<T, D, DKDV>();
   const size_t smem =
       (size_t)(2 * c.bm + 4 * c.bn) * tile_ld<T, D>() * sizeof(T) +
       4 * c.bn * sizeof(float) +
@@ -709,7 +754,7 @@ template <typename T, int D>
 int dq(const void* q, const void* k, const void* v, const void* o,
        const float* lse, const void* dout, void* dqp, float* delta, int bh,
        int S, int causal, int window, float scale, cudaStream_t st) {
-  constexpr Tiles c = bwd_tiles<T, D, false>();
+  constexpr Tiles c = attn_tiles<T, D, DQ>();
   static_assert(c.wd == 1, "dq: a warp owns all of its rows' columns");
   const size_t smem =
       (size_t)(2 * c.bm + 4 * c.bn) * tile_ld<T, D>() * sizeof(T);

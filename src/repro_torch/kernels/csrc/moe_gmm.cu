@@ -21,9 +21,11 @@
 // 118 GFLOP against under 1 GB of inputs and output, far above the
 // card's bytes-to-FLOP line, so the bound is arithmetic.
 //
-// gmm_fwd and gmm_bwd_dx run on the tensor cores (gmm_mma_kernel):
-//  - A block owns one (expert, MMA_BM x MMA_BN tile of C); its 8 warps
-//    own 64 x 32 outputs each. The block walks R in tiles of 128 bytes
+// All three run one tile loop on the tensor cores (gmm_mma_kernel):
+//  - A block owns one (expert, MMA_BM x MMA_BN = 128 x 64 tile of C);
+//    its 4 warps own 64 x 32 outputs each, and two blocks share an SM,
+//    so one block's ring fill and epilogue run under the other's
+//    products. The block walks R in tiles of 128 bytes
 //    (32 f32 or 64 bf16), copied by cp.async into a ring of MMA_STAGES
 //    stages in dynamic shared memory, so the next tiles' copies run
 //    under the current tile's products.
@@ -37,10 +39,10 @@
 //    attention backward does).
 //  - Operand tiles are stored either with the reduction contiguous
 //    (A of NN and NT, B of NT: read by ldmatrix) or with the rows
-//    contiguous (B of NN: ldmatrix.trans in bf16, 32-bit loads in f32),
-//    rows padded so that neither read has bank conflicts. Only that read
-//    differs between the two products, so the TN product (A read
-//    transposed) is a third instance of the same loop.
+//    contiguous (B of NN and TN, A of TN: ldmatrix.trans in bf16, 32-bit
+//    loads in f32), rows padded so that neither read has bank conflicts.
+//    Only that read differs between the products: the three are
+//    instances of one loop.
 //  - Ragged P, Q and R: rows and reduction elements out of range arrive
 //    as zeros (cp.async's source size 0) and outputs out of range are
 //    not written. The 16-byte copies need every operand row to be a
@@ -48,14 +50,11 @@
 //    runs the narrow instance (WIDE false: 4-byte cp.async for f32,
 //    plain loads for bf16, which cp.async cannot copy alone).
 //  - On an H100 the f32 instances run at about 50 TFLOP/s, 30 % of the
-//    3xTF32 bound; other tile shapes, ring depths and one accumulator
-//    did no better (PERF.md).
-//
-// gmm_bwd_dw still runs the first version's loop on the CUDA cores (f32
-// FMAs, no tensor cores): one block owns one (expert, 64 x 64 tile of C)
-// and loops over R in shared-memory tiles of 16, each of 256 threads a
-// 4 x 4 register tile, the next tile fetched into registers while the
-// current one is multiplied.
+//    3xTF32 bound; ring depths and one accumulator did no better, and
+//    the 128 x 64 tile at two blocks an SM beat 128 x 128 at one
+//    (PERF.md). gmm_bwd_dw's reduction is the token axis, M = 342 on
+//    the main path: 11 R tiles a block, where gmm_fwd's blocks walk 64,
+//    so the ring's fill and the epilogue weigh more there.
 //
 // Determinism: no split of R across blocks and no atomics, so every
 // output element is summed in one fixed order (gmm_bwd_dw reduces over
@@ -75,17 +74,6 @@
 
 namespace {
 
-constexpr int TP = 64;          // rows of C per block
-constexpr int TQ = 64;          // columns of C per block
-constexpr int TR = 16;          // reduction depth per shared tile
-constexpr int NT = 256;         // threads: 16 x 16, each a 4 x 4 tile
-constexpr int LDS = TP + 4;     // padded row of a shared tile (16 B rows)
-constexpr int PER = TP * TR / NT;   // elements of each tile per thread
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -95,120 +83,12 @@ from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Element (row, r) of a 64-row operand tile, for the tile's flat index
-// `idx`. Stored (rows x R) with r contiguous (TRANS false): consecutive
-// threads take consecutive r. Stored (R x rows), rows contiguous (TRANS
-// true): consecutive threads take consecutive rows. Both keep global
-// reads coalesced.
-template <bool TRANS>
-__device__ __forceinline__ void tile_coord(int idx, int& row, int& r) {
-  if (TRANS) {
-    r = idx / TP;
-    row = idx % TP;
-  } else {
-    row = idx / TR;
-    r = idx % TR;
-  }
-}
-
-// Load this thread's PER elements of the operand tile at (row0, r0) into
-// registers as f32; elements outside (rows, R) read as zero. `g` points
-// at the expert's matrix: (rows x R) if !TRANS, else (R x rows).
-template <typename T, bool TRANS>
-__device__ __forceinline__ void fetch(float* reg, const T* __restrict__ g,
-                                      int row0, int r0, int rows, int R) {
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    int row, r;
-    tile_coord<TRANS>(threadIdx.x + i * NT, row, r);
-    row += row0;
-    r += r0;
-    const bool in = row < rows && r < R;
-    const size_t off = TRANS ? (size_t)r * rows + row : (size_t)row * R + r;
-    reg[i] = in ? to_f(g[off]) : 0.f;
-  }
-}
-
-// Registers -> shared tile s[r * LDS + row].
-template <bool TRANS>
-__device__ __forceinline__ void stash(float* s, const float* reg) {
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    int row, r;
-    tile_coord<TRANS>(threadIdx.x + i * NT, row, r);
-    s[r * LDS + row] = reg[i];
-  }
-}
-
-// C[e] (P x Q) = A[e] . B[e] with reduction length R, where
-//   A(p, r) = TA ? a[r * P + p] : a[p * R + r]
-//   B(r, q) = TB ? b[q * R + r] : b[r * Q + q].
-// Grid: (ceil(Q / 64), ceil(P / 64), E).
-template <typename T, bool TA, bool TB>
-__global__ void __launch_bounds__(NT)
-gmm_kernel(const T* __restrict__ a, const T* __restrict__ b,
-           T* __restrict__ c, int P, int Q, int R) {
-  __shared__ __align__(16) float As[TR * LDS];   // As[r * LDS + p]
-  __shared__ __align__(16) float Bs[TR * LDS];   // Bs[r * LDS + q]
-  const int e = blockIdx.z;
-  const int p0 = blockIdx.y * TP, q0 = blockIdx.x * TQ;
-  a += (size_t)e * P * R;
-  b += (size_t)e * R * Q;
-  c += (size_t)e * P * Q;
-  // B is read as a Q-row operand: B(r, q) = Bt(q, r), Bt stored (Q x R)
-  // when TB and (R x Q) otherwise.
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  float ra[PER], rb[PER];
-  fetch<T, TA>(ra, a, p0, 0, P, R);
-  fetch<T, !TB>(rb, b, q0, 0, Q, R);
-  for (int r0 = 0; r0 < R; r0 += TR) {
-    __syncthreads();                 // the last tile's readers are done
-    stash<TA>(As, ra);
-    stash<!TB>(Bs, rb);
-    __syncthreads();
-    if (r0 + TR < R) {               // next tile in flight during FMAs
-      fetch<T, TA>(ra, a, p0, r0 + TR, P, R);
-      fetch<T, !TB>(rb, b, q0, r0 + TR, Q, R);
-    }
-#pragma unroll
-    for (int r = 0; r < TR; ++r) {
-      const float4 av = *reinterpret_cast<const float4*>(
-          &As[r * LDS + ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(
-          &Bs[r * LDS + tx * 4]);
-      const float ai[4] = {av.x, av.y, av.z, av.w};
-      const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = p0 + ty * 4 + i;
-    if (p >= P) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int q = q0 + tx * 4 + j;
-      if (q < Q) c[(size_t)p * Q + q] = from_f<T>(acc[i][j]);
-    }
-  }
-}
-
 // ------------------------------------------------ tensor-core tile loop
 
 constexpr int MMA_BM = 128;          // rows of C per block
-constexpr int MMA_BN = 128;          // columns of C per block
+constexpr int MMA_BN = 64;           // columns of C per block
 constexpr int MMA_WM = 2;            // warps along the rows
-constexpr int MMA_WN = 4;            // warps along the columns
+constexpr int MMA_WN = 2;            // warps along the columns
 constexpr int MMA_NT = MMA_WM * MMA_WN * 32;
 constexpr int MMA_STAGES = 3;        // depth of the cp.async ring
 constexpr int TILE_BYTES = 128;      // of each row of R a stage holds
@@ -329,12 +209,15 @@ constexpr size_t mma_smem() {
 }
 
 // C[e] (P x Q) = A[e] . B[e] with reduction length R on the tensor cores,
-// A and B as for gmm_kernel. Grid: (ceil(Q / MMA_BN), ceil(P / MMA_BM),
-// E), MMA_NT threads, mma_smem<T, TA, TB>() bytes of dynamic shared
-// memory. Accumulator layout of m16n8: sum[i][j][e] is row 16 i + g +
-// 8 (e / 2), column 8 j + 2 t + e % 2 of the warp's tile.
+// where
+//   A(p, r) = TA ? a[r * P + p] : a[p * R + r]
+//   B(r, q) = TB ? b[q * R + r] : b[r * Q + q].
+// Grid: (ceil(Q / MMA_BN), ceil(P / MMA_BM), E), MMA_NT threads,
+// mma_smem<T, TA, TB>() bytes of dynamic shared memory. Accumulator
+// layout of m16n8: sum[i][j][e] is row 16 i + g + 8 (e / 2), column
+// 8 j + 2 t + e % 2 of the warp's tile.
 template <typename T, bool TA, bool TB, bool WIDE>
-__global__ void __launch_bounds__(MMA_NT, 1)
+__global__ void __launch_bounds__(MMA_NT, 2)
 gmm_mma_kernel(const T* __restrict__ a, const T* __restrict__ b,
                T* __restrict__ c, int P, int Q, int R) {
   using TlA = OpTile<T, !TA, MMA_BM>;
@@ -409,15 +292,6 @@ gmm_mma_kernel(const T* __restrict__ a, const T* __restrict__ b,
 
 constexpr int kUnsupported = 100000;   // not a cudaError_t value
 
-template <typename T, bool TA, bool TB>
-int gmm(const void* a, const void* b, void* c, int E, int P, int Q, int R,
-        cudaStream_t st) {
-  dim3 grid((Q + TQ - 1) / TQ, (P + TP - 1) / TP, E);
-  gmm_kernel<T, TA, TB><<<grid, NT, 0, st>>>((const T*)a, (const T*)b,
-                                             (T*)c, P, Q, R);
-  return (int)cudaGetLastError();
-}
-
 template <typename T, bool TA, bool TB, bool WIDE>
 int gmm_mma_launch(const void* a, const void* b, void* c, int E, int P,
                    int Q, int R, cudaStream_t st) {
@@ -445,23 +319,16 @@ int gmm_mma(const void* a, const void* b, void* c, int E, int P, int Q,
               : gmm_mma_launch<T, TA, TB, false>(a, b, c, E, P, Q, R, st);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. MMA: the tensor-core loop, else the
-// FMA loop.
-template <bool TA, bool TB, bool MMA>
+// dtype: 0 = float32, 1 = bfloat16.
+template <bool TA, bool TB>
 int dispatch(const void* a, const void* b, void* c, int E, int P, int Q,
              int R, int dtype, void* stream) {
   if (E <= 0 || P <= 0 || Q <= 0 || R < 0 || E > 65535)
     return kUnsupported;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    if constexpr (MMA) return gmm_mma<float, TA, TB>(a, b, c, E, P, Q, R, st);
-    else return gmm<float, TA, TB>(a, b, c, E, P, Q, R, st);
-  }
-  if (dtype == 1) {
-    if constexpr (MMA)
-      return gmm_mma<__nv_bfloat16, TA, TB>(a, b, c, E, P, Q, R, st);
-    else return gmm<__nv_bfloat16, TA, TB>(a, b, c, E, P, Q, R, st);
-  }
+  if (dtype == 0) return gmm_mma<float, TA, TB>(a, b, c, E, P, Q, R, st);
+  if (dtype == 1)
+    return gmm_mma<__nv_bfloat16, TA, TB>(a, b, c, E, P, Q, R, st);
   return kUnsupported;
 }
 
@@ -474,17 +341,17 @@ extern "C" {
 // (0 = launched), or 100000 for a dtype or shape with no launch.
 int gmm_fwd(const void* x, const void* w, void* y, int e, int m, int k,
             int n, int dtype, void* stream) {
-  return dispatch<false, false, true>(x, w, y, e, m, n, k, dtype, stream);
+  return dispatch<false, false>(x, w, y, e, m, n, k, dtype, stream);
 }
 
 int gmm_bwd_dx(const void* dy, const void* w, void* dx, int e, int m,
                int k, int n, int dtype, void* stream) {
-  return dispatch<false, true, true>(dy, w, dx, e, m, k, n, dtype, stream);
+  return dispatch<false, true>(dy, w, dx, e, m, k, n, dtype, stream);
 }
 
 int gmm_bwd_dw(const void* x, const void* dy, void* dw, int e, int m,
                int k, int n, int dtype, void* stream) {
-  return dispatch<true, false, false>(x, dy, dw, e, k, n, m, dtype, stream);
+  return dispatch<true, false>(x, dy, dw, e, k, n, m, dtype, stream);
 }
 
 }  // extern "C"

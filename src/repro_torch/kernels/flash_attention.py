@@ -112,6 +112,12 @@ def attention_bwd_ref(q, k, v, o, lse, do, causal: bool, scale: float,
 
 
 # -------------------------------------------------------------- wrappers
+def _aligned16(t):
+    """t itself when its data starts on a 16-byte boundary (the kernels
+    copy rows 16 bytes at a time), else a fresh copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_fwd(q, k, v, causal: bool, scale: float, window: int = 0):
     """(o, lse): the `flash_fwd` kernel for CUDA tensors, the plain
     version for CPU tensors."""
@@ -119,7 +125,7 @@ def flash_fwd(q, k, v, causal: bool, scale: float, window: int = 0):
     _check_window(window)
     if _device_kind(q) == "cpu":
         return attention_fwd_ref(q, k, v, causal, scale, window)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned16(t.contiguous()) for t in (q, k, v))
     bh, s, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
@@ -127,12 +133,6 @@ def flash_fwd(q, k, v, causal: bool, scale: float, window: int = 0):
            o.data_ptr(), lse.data_ptr(), bh, s, d, _DTYPE_CODE[q.dtype],
            int(causal), int(window), float(scale), device=q.device)
     return o, lse
-
-
-def _aligned16(t):
-    """t itself when its data starts on a 16-byte boundary (the backward
-    kernels copy rows 16 bytes at a time), else a fresh copy."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_bwd(q, k, v, o, lse, do, causal: bool, scale: float,
