@@ -45,7 +45,22 @@ Phases (each failure exits non-zero):
   7. slice, xLSTM: the launcher trains xLSTM-350M at full width and
      depth (24 layers: 12 x (mlstm, slstm); d_model 1024, 4 heads of
      512 in the mLSTM, vocab 50304, untied head) for XL_STEPS steps at
-     global batch 4, seq XL_SEQ, with RunCfg's defaults.
+     global batch 4, seq XL_SEQ, with RunCfg's defaults;
+  8. slice, migration (run right after phase 4, once its engines are
+     freed): the Controller drives GPT-medium with phase 4's engine
+     arguments on a cluster of dp x pp + 2 + 1 machines with one
+     general standby: bootstrap_job (setup, record_iteration, a
+     checkpoint tick, the standby warmed for the first and last roles),
+     train(1), an expected migration of grid[(1, 1)], train(1), an
+     unexpected failure of grid[(0, 0)] (a first stage: the standby's
+     promotion takes the role-delta path), train(1). The three losses
+     must equal the last three of phase 4's first run bit for bit (the
+     paper's contract), and the launches the count derived from the
+     script. Per event it prints the MigrationReport, the SimClock's
+     downtime and overlap lanes (simulated, the cost model), the wall
+     seconds the card took (measured), the bytes each state copy moved,
+     each checkpoint tick's wall seconds and bytes, and the peak device
+     memory.
 Each engine slice runs setup, record_iteration and 3 x train_iteration
 twice with the same seed; the launcher slices run the launcher twice.
 Losses must be bitwise equal across the two runs, and the GPT and MoE
@@ -960,18 +975,23 @@ def profile_step(eng, step_s: float):
 
 
 def build_engine(cfg, device, seed=0, dp=2, pp=2, batch=8, seq=32,
-                 param_dtype=torch.float32):
+                 param_dtype=torch.float32, machines=None, setup=True):
+    """The engine every slice drives: a cluster of `machines` (dp * pp
+    unless given), set up on the first dp * pp of them unless `setup`
+    is False (the Controller's bootstrap_job sets it up itself)."""
     from repro_torch.cluster.node import Cluster
     from repro_torch.cluster.simclock import SimClock
     from repro_torch.core.engine import PipelineEngine
     from repro_torch.core.sandbox import CommHooks
     clock = SimClock()
     eng = PipelineEngine(cfg, dp, pp, batch, seq,
-                         Cluster(dp * pp, device_capacity=80 * 2 ** 30),
+                         Cluster(machines or dp * pp,
+                                 device_capacity=80 * 2 ** 30),
                          clock, CommHooks(clock), micro_batches=2,
                          seed=seed, sim_compile_seconds=1.0,
                          param_dtype=param_dtype, device=device)
-    eng.setup(list(range(dp * pp)))
+    if setup:
+        eng.setup(list(range(dp * pp)))
     return eng
 
 
@@ -1110,6 +1130,131 @@ def drive(mods, label, cfg, dp, batch, moe, first_loss,
           flush=True)
     if not same:
         raise SystemExit("same-seed runs disagree")
+    return launches, losses
+
+
+def migration_expected_launches(cfg, dp: int):
+    """Launches over phase 8's script at pp=2: four iterations as in
+    expected_launches (record and three train calls), plus the shadow
+    iterations, each on one micro-batch: the standby's for the first
+    role (stage 0: forward, then mid_bwd's recompute and backward) and
+    the last (stage 1: last_bwd, forward and backward once), and the
+    migration joiner's for the last role. The failure's promotion and
+    every state copy launch nothing."""
+    per = cfg.num_layers // 2
+    want = expected_launches(cfg, dp, moe=False)
+    shadow_fwd, shadow_bwd = 2 * per + per + per, per + per + per
+    want["flash_fwd"] += shadow_fwd
+    want["flash_bwd_dq"] += shadow_bwd
+    want["flash_bwd_dkdv"] += shadow_bwd
+    return want
+
+
+def drive_migration(mods, cfg, dp: int, batch: int, card: str, unbroken):
+    """Phase 8: the Controller's bootstrap, an expected migration and
+    an unexpected failure of GPT-medium on the card, with phase 4's
+    engine arguments; its three train(1) losses must be `unbroken`,
+    the last three losses of phase 4's first run, bit for bit."""
+    from repro_torch.core.controller import Controller
+    print(f"[slice] {cfg.name} migration: Controller over dp={dp} pp=2, "
+          f"{dp * 2 + 2 + 1} machines, one general standby", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods:
+        mod.reset_launches()
+    eng = build_engine(cfg, "cuda", dp=dp, pp=2, batch=batch, seq=2048,
+                       machines=dp * 2 + 2 + 1, setup=False)
+    clock = eng.clock
+    ctl = Controller(eng, standby_count=1)
+    ticks = []
+    tick = ctl._tick_checkpoints
+
+    def timed_tick():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tick()
+        torch.cuda.synchronize()
+        ticks.append((time.perf_counter() - t0, sum(
+            ctl.imc.bytes_for(m) for m in ctl.engine.grid.values())))
+
+    ctl._tick_checkpoints = timed_tick
+    script = [
+        ("bootstrap_job", lambda: ctl.bootstrap_job(list(range(dp * 2)))),
+        ("train(1)", lambda: ctl.train(1)),
+        ("expected_migration(grid[(1, 1)])",
+         lambda: ctl.expected_migration([eng.grid[(1, 1)]])),
+        ("train(1)", lambda: ctl.train(1)),
+        ("unexpected_failure(grid[(0, 0)])",
+         lambda: ctl.unexpected_failure(eng.grid[(0, 0)])),
+        ("train(1)", lambda: ctl.train(1))]
+    losses, events = [], []
+    for name, fn in script:
+        lanes = {ln: clock.lane_total(ln) for ln in ("downtime", "overlap")}
+        n_ticks = len(ticks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sim = {ln: clock.lane_total(ln) - v for ln, v in lanes.items()}
+        tick_s = sum(t for t, _ in ticks[n_ticks:])
+        print(f"  {name}: measured {wall:.4f} s wall on the card ({card}), "
+              f"between torch.cuda.synchronize() calls, of it "
+              f"{tick_s:.4f} s in {len(ticks) - n_ticks} checkpoint "
+              f"tick(s); simulated (cost model): downtime lane "
+              f"+{sim['downtime']:.6f} s, overlap lane "
+              f"+{sim['overlap']:.6f} s", flush=True)
+        event = {"event": name, "measured_wall_s": wall,
+                 "measured_tick_s": tick_s,
+                 "simulated_downtime_lane_s": sim["downtime"],
+                 "simulated_overlap_lane_s": sim["overlap"]}
+        if isinstance(out, list):
+            losses += out
+            event["losses"] = out
+        elif out is not None:
+            rep = {k: getattr(out, k) for k in (
+                "downtime", "overlap", "state_path", "promote_s",
+                "lost_iterations", "mem_overhead_bytes", "state_bytes",
+                "state_transfer_s")}
+            print(f"    MigrationReport (simulated, cost model): "
+                  + ", ".join(f"{k}={v!r}" for k, v in rep.items()),
+                  flush=True)
+            how = ("leaver_to_joiner, one packed buffer"
+                   if name.startswith("expected") else
+                   f"recover_state, path {out.state_path}")
+            print(f"    state copy moved {out.state_bytes} B ({how})",
+                  flush=True)
+            event["report"] = rep
+        events.append(event)
+    launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for i, (t, nbytes) in enumerate(ticks):
+        print(f"  checkpoint tick {i}: measured {t:.4f} s wall ({card}), "
+              f"{nbytes} B device to host", flush=True)
+    print(f"  max_memory_allocated {peak} B ({card})", flush=True)
+    print(f"  SimClock totals (simulated, cost model): downtime "
+          f"{clock.lane_total('downtime')} s, overlap "
+          f"{clock.lane_total('overlap')} s, train "
+          f"{clock.lane_total('train')} s", flush=True)
+    print(f"  launches in the path: {launches}", flush=True)
+    print("  migration: " + json.dumps({
+        "card": card, "events": events, "ticks": [
+            {"measured_s": t, "bytes": b} for t, b in ticks],
+        "max_memory_allocated": peak, "launches": launches}), flush=True)
+    want = migration_expected_launches(cfg, dp)
+    same = losses == unbroken
+    print(f"  losses {losses}, unbroken run's {unbroken}: bitwise equal "
+          f"{same}", flush=True)
+    del ctl, eng, tick
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not same:
+        raise SystemExit(f"migration slice: losses {losses} are not the "
+                         f"unbroken run's {unbroken}")
+    if launches != want:
+        raise SystemExit(f"migration slice: launches {launches} (want "
+                         f"{want})")
     return launches
 
 
@@ -1264,19 +1409,20 @@ def main() -> int:
 
     mods = (fa, gm, rg, ml)
     gpt = GPT_MEDIUM
-    launches = drive(mods, f"GPT-medium, {gpt.num_layers} layers, dp=2 "
-                     f"pp=2 mb=2 batch 8 seq 2048", gpt, 2, 8, moe=False,
-                     first_loss=GPT_FIRST_LOSS)
+    launches, gpt_losses = drive(
+        mods, f"GPT-medium, {gpt.num_layers} layers, dp=2 pp=2 mb=2 batch 8 "
+        f"seq 2048", gpt, 2, 8, moe=False, first_loss=GPT_FIRST_LOSS)
+    mig_launches = drive_migration(mods, gpt, 2, 8, card, gpt_losses[1:])
     # 1.76 G parameters at 2 layers: with f32 layer weights the first
     # Adam update needs more than the card's 80 GB (flat m, v and master
     # beside the weights, their buckets, the gradients and the update's
     # temporaries), so the layer weights are stored in bf16
     qwen = qwen2_moe_a2_7b.CONFIG.replace(num_layers=2)
-    moe_launches = drive(mods, f"{qwen.name}, {qwen.num_layers} layers, "
-                         f"dp=1 pp=2 mb=2 batch 4 seq 2048, bf16 layer "
-                         f"weights", qwen, 1, 4, moe=True,
-                         first_loss=MOE_FIRST_LOSS,
-                         param_dtype=torch.bfloat16)
+    moe_launches, _ = drive(mods, f"{qwen.name}, {qwen.num_layers} "
+                            f"layers, dp=1 pp=2 mb=2 batch 4 seq 2048, bf16 "
+                            f"layer weights", qwen, 1, 4, moe=True,
+                            first_loss=MOE_FIRST_LOSS,
+                            param_dtype=torch.bfloat16)
     rgc = recurrentgemma_2b.CONFIG
     rg_launches = drive_launcher(mods, rgc, [
         "--arch", rgc.name, "--steps", "3", "--batch", "1", "--seq",
@@ -1288,8 +1434,10 @@ def main() -> int:
         "--seq", str(XL_SEQ), "--log-every", "1", "--device", "cuda"],
         f"batch 4 seq {XL_SEQ}, launcher defaults (bf16 params, remat)")
     names = FLASH + GMM + SCAN + MLSTM
-    by_path = {n: {gpt.name: launches[n], qwen.name: moe_launches[n],
-                   rgc.name: rg_launches[n], xl.name: xl_launches[n]}
+    by_path = {n: {gpt.name: launches[n],
+                   f"{gpt.name} migration": mig_launches[n],
+                   qwen.name: moe_launches[n], rgc.name: rg_launches[n],
+                   xl.name: xl_launches[n]}
                for n in names}
 
     print("kernels: " + ", ".join(f"{n} ok" for n in names))

@@ -686,11 +686,19 @@ class PipelineEngine:
             self._stage_params(m)               # materialize if lazy
         return to_host({k: m.payload[k] for k in ("params", "opt", "step")})
 
+    def _as_device(self, leaf) -> torch.Tensor:
+        """A state leaf as a tensor on the engine's device. The step, an
+        int, becomes a 0-d int32 tensor, as jnp.asarray makes it with
+        64-bit types off, so that the restored state's tree_bytes are
+        the reference's."""
+        if isinstance(leaf, torch.Tensor):
+            return self._dev(leaf)
+        return torch.tensor(int(leaf), dtype=torch.int32,
+                            device=self.device)
+
     def set_state(self, mid: int, state: dict) -> None:
         m = self.cluster[mid]
-        m.payload.update(tree_map(
-            lambda l: self._dev(l) if isinstance(l, torch.Tensor) else l,
-            state))
+        m.payload.update(tree_map(self._as_device, state))
         if self.use_flat_buffers:
             # params arrived in tree form; buckets rebuilt on demand
             m.payload["param_segs"] = None

@@ -7,18 +7,22 @@ import numpy as np
 import pytest
 import torch
 
+from fast_jax_engine import fast_jax_engine
 from repro.cluster.node import Cluster as JCluster
 from repro.cluster.simclock import SimClock as JSimClock
 from repro.configs.gpt import tiny_gpt as jtiny_gpt
+from repro.core.engine import IterationInterrupt as JIterationInterrupt
 from repro.core.engine import PipelineEngine as JEngine
 from repro.core.sandbox import CommHooks as JCommHooks
 from repro.models import backbone as jbackbone
+from repro.train.checkpoint import tree_bytes as jtree_bytes
 from repro_torch.cluster.node import Cluster, NodeStatus, Role
 from repro_torch.cluster.simclock import SimClock
 from repro_torch.configs.gpt import tiny_gpt
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.engine import IterationInterrupt, PipelineEngine
 from repro_torch.core.sandbox import CommHooks
+from repro_torch.train.checkpoint import tree_bytes
 from repro_torch.tree import tree_flatten
 
 # the campaign's tiny GPT and grid (core/campaign.py CampaignCfg)
@@ -156,16 +160,96 @@ def test_swap_machine_hands_a_rank_to_a_joiner(runs):
     assert a.train_iteration() == b.train_iteration()
 
 
+def _drive_paths(eng, interrupt_cls, tree_bytes) -> dict:
+    """The three engine paths the Controller's recoveries build on, in
+    turn, on an engine after record + ITERS iterations: two sandboxed
+    shadow iterations on a spare, then an iteration; an interrupt armed
+    at post_reduce, then the iteration again; dp_retire(1), an
+    iteration hosted by the surviving chain, dp_restaff, an iteration.
+    Per step: the clock phases it added, the lanes, the comm counters,
+    the step counters and the loss."""
+    clock, comm, out = eng.clock, eng.comm, {}
+    mark = len(clock.phases)
 
-def test_shadow_iteration_replays_from_the_tape(runs):
-    _, (eng, clock, comm, tape), _ = runs
-    before = clock.lane_total("overlap")
+    def note(name, loss=None, **extra):
+        nonlocal mark
+        out[name] = {
+            "loss": loss,
+            "phases": [(p.name, p.start, p.duration, p.lane)
+                       for p in clock.phases[mark:]],
+            "lanes": {ln: clock.lane_total(ln)
+                      for ln in ("train", "downtime", "overlap")},
+            "comm": (dict(comm.op_counts), comm.record_bytes,
+                     comm.replay_bytes, clock.comm_exposed,
+                     clock.comm_hidden, clock.pending_async()),
+            "steps": (eng.step_count, sorted(
+                (mid, int(eng.cluster[mid].payload["step"]))
+                for mid in eng.grid.values())),
+            **extra}
+        mark = len(clock.phases)
+
     spare = eng.cluster[DP * PP]
+    cached = []
     for stage, role_type in ((0, "first"), (PP - 1, "last")):
         role = eng.shadow_iteration(spare, role_type, stage)
-        assert spare.warm_roles[role_type] is role
-    assert clock.lane_total("overlap") == before + 2 * 1.0
-    assert comm.replay_bytes > 0
+        # the role the standby caches is the one the iteration built
+        cached.append(spare.warm_roles[role_type] is role)
+    note("shadow", warm=sorted(spare.warm_roles), cached=cached,
+         sandbox_bytes=tree_bytes(spare.payload["sandbox_state"]))
+    note("after_shadow", eng.train_iteration())
+    eng.arm_interrupt("post_reduce", victim=eng.grid[(1, 0)])
+    with pytest.raises(interrupt_cls) as ei:
+        eng.train_iteration()
+    note("post_reduce", phase=ei.value.phase, dirty=ei.value.dirty,
+         victim=ei.value.victim)
+    note("after_post_reduce", eng.train_iteration())
+    gone = eng.dp_retire(1)
+    note("dp_retire", gone=gone, hosted=sorted(eng.hosted.items()),
+         mids=[eng.machine(d, s).mid for d in range(DP)
+               for s in range(PP)])
+    note("hosted", eng.train_iteration())
+    eng.dp_restaff(1, {s: gone[s] for s in range(PP)})
+    note("restaffed", eng.train_iteration(), hosted=sorted(eng.hosted))
+    return out
+
+
+@pytest.fixture(scope="module")
+def paths(runs):
+    _, _, full_np = runs
+    clock = JSimClock()
+    jeng = JEngine(jtiny_gpt(LAYERS, D, HEADS, VOCAB), DP, PP, BATCH, SEQ,
+                   JCluster(DP * PP + 2), clock, JCommHooks(clock),
+                   sim_compile_seconds=1.0)
+    with fast_jax_engine():
+        jeng.setup(list(range(DP * PP)))
+        jeng.record_iteration()
+        for _ in range(ITERS):
+            jeng.train_iteration()
+        ref = _drive_paths(jeng, JIterationInterrupt, jtree_bytes)
+    eng, *_ = _run_port(full_np)
+    port = _drive_paths(eng, IterationInterrupt, tree_bytes)
+    still, *_ = _run_port(full_np)
+    return ref, port, still.train_iteration()
+
+
+def test_shadow_iteration_replays_from_the_tape(paths):
+    """Two sandboxed shadow iterations on a spare: the overlap charge,
+    the replayed bytes and the roles warmed are the JAX engine's, and
+    the job trains on as if they never ran."""
+    ref, port, still_loss = paths
+    for step in ("shadow", "after_shadow"):
+        assert port[step]["phases"] == ref[step]["phases"]
+        assert port[step]["lanes"] == ref[step]["lanes"]
+        assert port[step]["comm"] == ref[step]["comm"]
+    assert port["shadow"]["warm"] == ref["shadow"]["warm"] == \
+        ["first", "last"]
+    assert port["shadow"]["cached"] == ref["shadow"]["cached"] == \
+        [True, True]
+    assert port["shadow"]["sandbox_bytes"] == ref["shadow"]["sandbox_bytes"]
+    assert port["shadow"]["comm"][2] > 0          # replayed from the tape
+    assert port["after_shadow"]["loss"] == still_loss
+    assert abs(port["after_shadow"]["loss"] - ref["after_shadow"]["loss"]) \
+        <= LOSS_TOL
 
 
 def test_armed_interrupt_commits_nothing(runs):
@@ -181,12 +265,32 @@ def test_armed_interrupt_commits_nothing(runs):
     assert eng.step_count == step + 1
 
 
-def test_dp_retire_and_restaff(runs):
-    _, _, full_np = runs
-    eng, *_ = _run_port(full_np)
-    gone = [eng.grid[(1, s)] for s in range(PP)]
-    assert eng.dp_retire(1) == gone
-    assert eng.machine(1, 0).mid == eng.grid[(0, 0)]
-    hosted = eng.train_iteration()
-    eng.dp_restaff(1, {s: gone[s] for s in range(PP)})
-    assert eng.hosted == {} and np.isfinite(hosted)
+def test_post_reduce_interrupt_matches_reference(paths):
+    """An interrupt armed at post_reduce fires dirty (payloads already
+    updated, the step counter not advanced), as in the JAX engine, with
+    the same ledgers; the iteration run again agrees with the JAX
+    engine's."""
+    ref, port, _ = paths
+    assert port["post_reduce"]["dirty"] is True
+    for step in ("post_reduce", "after_post_reduce"):
+        for part in ("phases", "lanes", "comm", "steps"):
+            assert port[step][part] == ref[step][part], (step, part)
+    for key in ("phase", "dirty", "victim"):
+        assert port["post_reduce"][key] == ref["post_reduce"][key]
+    assert abs(port["after_post_reduce"]["loss"]
+               - ref["after_post_reduce"]["loss"]) <= LOSS_TOL
+
+
+def test_dp_retire_and_restaff(paths):
+    """The iteration hosted by the surviving chain after dp_retire(1),
+    and the one after dp_restaff, against the JAX engine: losses within
+    LOSS_TOL, clock phases, comm counters and hosting identical."""
+    ref, port, _ = paths
+    for step in ("dp_retire", "hosted", "restaffed"):
+        for part in ("phases", "lanes", "comm", "steps"):
+            assert port[step][part] == ref[step][part], (step, part)
+    for key in ("gone", "hosted", "mids"):
+        assert port["dp_retire"][key] == ref["dp_retire"][key]
+    assert port["restaffed"]["hosted"] == ref["restaffed"]["hosted"] == []
+    for step in ("hosted", "restaffed"):
+        assert abs(port[step]["loss"] - ref[step]["loss"]) <= LOSS_TOL

@@ -39,13 +39,31 @@ def test_port_imports_without_jax_or_reference():
         assert mod in names, mod
 
 
+# an import of jax or of the JAX package at any indent: the import test
+# above executes only module-level imports, never one inside a function
+IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+
+
+def _imports(path):
+    return [l for l in path.read_text().splitlines() if IMPORT_RE.match(l)]
+
+
 @pytest.mark.parametrize("path", sorted(
-    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
+    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py",
+                                       ROOT / "examples/torch_quickstart.py"]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
-    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
-    hits = [l for l in path.read_text().splitlines() if pat.match(l)]
+    hits = _imports(path)
     assert not hits, hits
+
+
+def test_import_scan_sees_function_local_imports():
+    """The scan flags the reference Controller's imports inside method
+    bodies, which a port module copied without change would keep."""
+    hits = _imports(ROOT / "src" / "repro" / "core" / "controller.py")
+    local = [l for l in hits if l.startswith(" ")]
+    assert "        from repro.models.registry import count_params" in local
+    assert len(local) == 2
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
