@@ -5,10 +5,13 @@
 Phases (each failure exits non-zero):
   1. card: name and power limit, torch and CUDA versions, kernel build,
      each kernel instance's registers and spills (ptxas); every
-     attention instance (forward, dq, dkdv) and every grouped matmul
-     instance (gmm_mma_kernel: three products, wide and narrow) must
-     issue tensor-core instructions (HMMA in its SASS) and spill
-     nothing, and no other kernel may be in those two libraries;
+     attention instance (forward, dq, dkdv), every grouped matmul
+     instance (gmm_mma_kernel: three products, wide and narrow) and
+     every instance of the mLSTM forward's and dq/dk gradient's passes
+     with products (state walks, output and dq/dk passes) must issue
+     tensor-core instructions (HMMA in its SASS), no instance of those
+     three libraries may spill, and no other kernel may be in them (the
+     mLSTM's scalar passes and mlstm_bwd_dv have no HMMA);
   2. kernels: every CUDA kernel of the main paths against its plain
      PyTorch version on the card (tolerances below; the kernels' outputs
      are allocated filled with NaN, so one left unwritten fails),
@@ -19,7 +22,9 @@ Phases (each failure exits non-zero):
      three paths' shapes; torch.bmm for the grouped expert matmul, which
      each of its three kernels must beat at both of the MoE path's
      shapes; both timed in turns with the kernel; none for the RG-LRU
-     scan and the chunkwise mLSTM);
+     scan and the chunkwise mLSTM); the mLSTM's dq/dk kernel's dC
+     workspace against its plain reverse pass, and the device time of
+     each pass of the two multi-pass mLSTM kernels;
   3. reference: the engine on the card against the same engine on the
      CPU (plain versions) at the campaign's tiny GPT and at the reduced
      Qwen1.5-MoE config, and make_train_step on the card against the
@@ -141,6 +146,11 @@ GMM_DOWN = dict(GMM_SLICE, k=1408, n=2048)
 # sums over K = 512 and the chunk in other orders; bf16 h rounds to 8
 # bits, the gradients are f32 from the same bf16 inputs)
 MLSTM_F32_TOL, MLSTM_BF16_TOL = 1e-4, 1e-2
+# the mLSTM kernels' medians in their first design (plain FMA loops, one
+# block per (head, 64 columns of C), every chunk in order) at XL_MLSTM on
+# an NVIDIA H100 80GB HBM3 at 700 W, printed beside this run's
+MLSTM_FIRST_MS = {"mlstm_fwd": 6.5571, "mlstm_bwd_dqdk": 9.8827,
+                  "mlstm_bwd_dv": 7.1825}
 # the xLSTM-350M slice: steps per launcher run and sequence length
 XL_STEPS, XL_SEQ = 2, 2048
 # its mLSTM cells: batch 4 x 4 heads, seq XL_SEQ, head dim 512, chunk
@@ -150,6 +160,11 @@ FLASH = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 GMM = ("gmm_fwd", "gmm_bwd_dx", "gmm_bwd_dw")
 SCAN = ("rglru_fwd", "rglru_bwd")
 MLSTM = ("mlstm_fwd", "mlstm_bwd_dqdk", "mlstm_bwd_dv")
+# the mLSTM library's kernels, with and without tensor-core products
+MLSTM_TC = ("mlstm_fwd_state_kernel", "mlstm_fwd_out_kernel",
+            "mlstm_bwd_dqdk_state_kernel", "mlstm_bwd_dqdk_grad_kernel")
+MLSTM_NO_TC = ("mlstm_fwd_scalars_kernel", "mlstm_bwd_dqdk_scalars_kernel",
+               "mlstm_bwd_dv_kernel")
 SOURCES = {**{n: ("src/repro_torch/kernels/csrc/flash_attention.cu",
                   "src/repro/kernels/flash_attention.py:24")
               for n in FLASH},
@@ -766,6 +781,16 @@ def check_mlstm(ml):
                            / w.float().abs().max().clamp(min=1e-30)).item()
                           for g, w in zip(got[n], want[n]))
         del rgrads, want, own
+        # the dq/dk kernel's workspace, dC and dn at each chunk's end,
+        # against the plain reverse pass
+        with unwritten_is_nan():
+            _, _, dC, dn = ml.mlstm_bwd_dqdk(*ins, rh, dh, raux, chunk)
+        torch.cuda.synchronize()
+        rdC, rdn = ml.mlstm_bwd_dC_ref(ins[0], ins[3], ins[4], rh, dh, raux,
+                                       chunk)
+        dC_rel = max(((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+                     .item() for g, w in ((dC, rdC), (dn, rdn)))
+        del dC, dn, rdC, rdn
         with unwritten_is_nan():
             h2, aux2 = ml.mlstm_fwd(*ins, chunk)
             grads2 = ml.mlstm_bwd(*ins, rh, dh, raux, chunk)
@@ -777,8 +802,10 @@ def check_mlstm(ml):
                  f"(floor wins on {floor:.3f} of rows)")
         print(f"  {label}: " + ", ".join(
             f"{n} err {errs[n]:.3e} (rel {rels[n]:.2e}, tol {tol:g})"
-            for n in MLSTM) + f", bitwise repeat {repeat}", flush=True)
-        if not repeat or not all(rels[n] <= tol for n in MLSTM):
+            for n in MLSTM) + f", dC workspace rel {dC_rel:.2e}, bitwise "
+            f"repeat {repeat}", flush=True)
+        if not repeat or dC_rel > tol or not all(rels[n] <= tol
+                                                  for n in MLSTM):
             raise SystemExit(f"mLSTM check failed at {label}")
         if c == XL_MLSTM:
             results = {n: {"max_abs_err": errs[n]} for n in MLSTM}
@@ -792,16 +819,30 @@ def time_mlstm(ml, results, shape, ins, h, dh, aux):
     q, kk, v, li, lf = ins
     dq, dk, dv = (torch.empty(bh, s, k, device="cuda") for _ in range(3))
     dli, dlf = (torch.empty(bh, s, device="cuda") for _ in range(2))
+    dC = torch.empty(bh, s // chunk, k, k, device="cuda")
+    dn = torch.empty(bh, s // chunk, k, device="cuda")
+    ws = torch.empty(ml.WS_ROWS, bh, s, device="cuda")
     dims = (bh, s, k, chunk, 0, k ** -0.5)
     ptr = lambda *ts: [t.data_ptr() for t in ts]
     kern = {
         "mlstm_fwd": lambda: ml.mlstm_fwd(*ins, chunk),
         "mlstm_bwd_dqdk": lambda: ml.launch(
-            "mlstm_bwd_dqdk", *ptr(q, kk, v, li, lf, h, dh, *aux, dq, dk),
-            *dims, device=q.device),
+            "mlstm_bwd_dqdk", *ptr(q, kk, v, li, lf, h, dh, *aux, dq, dk, dC,
+                                   dn, ws), *dims, device=q.device),
         "mlstm_bwd_dv": lambda: ml.launch(
             "mlstm_bwd_dv", *ptr(q, kk, li, lf, h, dh, *aux[2:], dq, dk, dv,
                                  dli, dlf), *dims, device=q.device)}
+    # device time of each pass of one call of the two multi-pass kernels
+    from torch.profiler import ProfilerActivity, profile
+    for name in MLSTM[:2]:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kern[name]()
+            torch.cuda.synchronize()
+        passes = [(re.search(r"mlstm_\w+?_kernel", n).group(0), us)
+                  for n, us in device_kernels(prof) if "mlstm" in n]
+        print(f"  {name} passes (device ms): " + ", ".join(
+            f"{n} {us / 1e3:.4f}" for n, us in passes), flush=True)
     plain_fwd = time_ms(lambda: ml.mlstm_fwd_ref(*ins, chunk), 3)
     # the plain backward computes all five gradients in one pass
     plain_bwd = time_ms(lambda: ml.mlstm_bwd_ref(*ins, h, dh, aux, chunk),
@@ -814,16 +855,21 @@ def time_mlstm(ml, results, shape, ins, h, dh, aux):
         r["library_ms"] = None
         work = mlstm_work(name, **shape)
         r["bound_ms"], r["bound_by"] = bound(*work, shape["dtype"])
+        first = MLSTM_FIRST_MS[name]
         print(f"  {name} at BH={bh} S={s} K={k} chunk={chunk}: "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"none, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
-              f"{work[0] / r['ms'] / 1e9:.2f} TFLOP/s", flush=True)
+              f"{r['ms']:.4f} ms (first design {first:.4f} ms, "
+              f"{first / r['ms']:.2f}x), plain {r['plain_ms']:.4f} ms, "
+              f"library none, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); {work[0] / r['ms'] / 1e9:.2f} TFLOP/s",
+              flush=True)
 
 
 KERNEL_RE = re.compile(r"((?:rglru_|mlstm_)?(?:fwd|bwd)"
-                       r"(?:_dkdv|_dqdk|_dq|_dv)?_kernel"
+                       r"(?:_dkdv|_dqdk|_dq|_dv)?"
+                       r"(?:_scalars|_state|_out|_grad)?_kernel"
                        r"|gmm(?:_mma)?_kernel)"
-                       r"I((?:f|13__nv_bfloat16)+)((?:L[ib]\d+E)*)E")
+                       r"(?:I((?:f|13__nv_bfloat16)+)((?:L[ib]\d+E)*)E"
+                       r"|(?=E))")
 
 
 def instance_name(mangled: str):
@@ -833,8 +879,8 @@ def instance_name(mangled: str):
     if not m:
         return None
     dts = ["f32" if t == "f" else "bf16" for t in
-           re.findall(r"f|13__nv_bfloat16", m.group(2))]
-    args = re.findall(r"L[ib](\d+)E", m.group(3))
+           re.findall(r"f|13__nv_bfloat16", m.group(2) or "")]
+    args = re.findall(r"L[ib](\d+)E", m.group(3) or "")
     return f"{m.group(1)}<{', '.join(dts + args)}>"
 
 
@@ -876,10 +922,11 @@ def hmma_counts(lib: Path):
     return counts
 
 
-def tensor_core_instances(libs, lib: str, kernels, want: int) -> None:
+def tensor_core_instances(libs, lib: str, kernels, want: int,
+                          without=()) -> None:
     """Fails unless the library `lib` holds exactly `want` kernel
     instances, all of the kernels named in `kernels`, each with HMMA in
-    its SASS and no spill bytes."""
+    its SASS (but those named in `without`) and no spill bytes."""
     from repro_torch.kernels import _build
     hmma = hmma_counts(_build._target(lib))
     for n, c in sorted(hmma.items()):
@@ -887,14 +934,17 @@ def tensor_core_instances(libs, lib: str, kernels, want: int) -> None:
     spilled = [n for n, sp, _ in ptxas_summary(libs.log.get(lib, ""))
                if sp]
     others = [n for n in hmma if n.split("<")[0] not in kernels]
-    if len(hmma) != want or not all(hmma.values()) or spilled or others:
+    bare = [n for n, c in hmma.items()
+            if not c and n.split("<")[0] not in without]
+    if len(hmma) != want or bare or spilled or others:
         raise SystemExit(f"{lib}: HMMA counts {hmma} (want {want} "
-                         f"instances of {kernels}, each with HMMA), "
-                         f"spilling {spilled}, others {others}")
+                         f"instances of {kernels}, each with HMMA but "
+                         f"{without}), spilling {spilled}, others {others}")
 
 
 # device-time groups of a step's breakdown, matched in this order
-GROUPS = (("mLSTM kernels", r"mlstm_(fwd|bwd_dqdk|bwd_dv)_kernel"),
+GROUPS = (("mLSTM kernels",
+           r"mlstm_(fwd|bwd_dqdk|bwd_dv)(_scalars|_state|_out|_grad)?_kernel"),
           ("RG-LRU scan kernels", r"rglru_(fwd|bwd)_kernel"),
           ("attention kernels", r"\bfwd_kernel|bwd_dkdv_kernel|"
                                 r"bwd_dq_kernel"),
@@ -1391,6 +1441,13 @@ def main() -> int:
                           3 * len(fa.HEAD_DIMS) * len(fa._DTYPE_CODE))
     tensor_core_instances(libs, "moe_gmm", ("gmm_mma_kernel",),
                           3 * 2 * len(gm._DTYPE_CODE))
+    # the mLSTM forward's and dq/dk gradient's passes: their products on
+    # the tensor cores (state walks, output and dq/dk passes, f32 and
+    # bf16); the scalar passes do no products, and mlstm_bwd_dv keeps its
+    # FMA loops
+    tensor_core_instances(libs, "mlstm", MLSTM_TC + MLSTM_NO_TC,
+                          6 * len(ml._DTYPE_CODE) + 1,
+                          without=MLSTM_NO_TC)
 
     print("[kernels] against the plain versions", flush=True)
     results = check_kernels(fa)

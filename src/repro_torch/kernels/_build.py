@@ -51,12 +51,12 @@ SIGNATURES = {
         "rglru_bwd": [P, P, P, P, P, I, I, I, I, I, P],
     },
     "mlstm": {
-        # q, k, v, log_i, log_f, h, C_st, n_st, m_st, m_loc, den, bh, s,
-        # k_dim, chunk, dtype, scale, stream
-        "mlstm_fwd": [P] * 11 + [I] * 5 + [F, P],
+        # q, k, v, log_i, log_f, h, C_st, n_st, m_st, m_loc, den, ws, bh,
+        # s, k_dim, chunk, dtype, scale, stream
+        "mlstm_fwd": [P] * 12 + [I] * 5 + [F, P],
         # q, k, v, log_i, log_f, h, dh, C_st, n_st, m_st, m_loc, den, dq,
-        # dk, bh, s, k_dim, chunk, dtype, scale, stream
-        "mlstm_bwd_dqdk": [P] * 14 + [I] * 5 + [F, P],
+        # dk, dC, dn, ws, bh, s, k_dim, chunk, dtype, scale, stream
+        "mlstm_bwd_dqdk": [P] * 17 + [I] * 5 + [F, P],
         # q, k, log_i, log_f, h, dh, m_st, m_loc, den, dq, dk, dv,
         # dlog_i, dlog_f, bh, s, k_dim, chunk, dtype, scale, stream
         "mlstm_bwd_dv": [P] * 14 + [I] * 5 + [F, P],

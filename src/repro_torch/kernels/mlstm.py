@@ -12,6 +12,14 @@ dq and dk). A CUDA tensor launches the kernels (or raises); only a CPU
 tensor runs the plain versions, so the CPU tests exercise the same
 wiring.
 
+`mlstm_fwd` and `mlstm_bwd_dqdk` each run as passes: only the state
+recurrence walks the chunks in order (the forward's C and n, the
+backward's dC and dn), and everything else runs every chunk at once
+from the states stored per chunk. The plain versions of those passes
+(`mlstm_fwd_states_ref`, `mlstm_fwd_out_ref`, `mlstm_bwd_dC_ref`,
+`mlstm_bwd_dqdk_ref`) hold that algebra against the one-pass plain
+versions in the tests.
+
 The backward treats every stabilizer as a constant. With num = e^-M
 num_raw and den = e^-M den_raw for a row's stabilizer M, the output
 num_raw / max(|den_raw|, 1) does not depend on M, so its gradient is the
@@ -29,12 +37,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import mlstm_chunks, tril_ones
+from repro_torch.kernels.ref import NEG, mlstm_chunks, tril_ones
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64            # the kernels' column tile; K must be a multiple
 MAX_K = 512          # C's column tile (K x 64 f32) fits shared memory
 MAX_CHUNK = 64
+WS_ROWS = 8          # mlstm_fwd's and mlstm_bwd_dqdk's workspace: (8, BH, S)
 
 # Kernel launches by name. Each wrapper adds one where it launches its
 # kernel and nowhere else; callers zero them with reset_launches().
@@ -153,34 +162,217 @@ def mlstm_bwd_ref(q, k, v, log_i, log_f, h, dh, aux, chunk: int):
     return tuple(torch.cat(x, 1) for x in (dq, dk, dv, dli, dlf))
 
 
+# ------------------------------------- plain versions of the kernels' passes
+def _gates(log_i, log_f, chunk: int):
+    """log_i, F (the inclusive cumsum of log_f within each chunk) and
+    scale_s = log_i + Ftot - F, each (BH, nc, L) f32."""
+    bh, s = log_i.shape
+    tri = tril_ones(chunk, log_i.device)
+    li = log_i.float().reshape(bh, s // chunk, chunk)
+    F = log_f.float().reshape(bh, s // chunk, chunk) @ tri.T
+    return li, F, li + F[..., -1:] - F
+
+
+def _per_chunk(*ts, chunk: int):
+    """Each (BH, S, K) tensor as (BH, nc, L, K) f32."""
+    return tuple(t.float().reshape(t.shape[0], -1, chunk, t.shape[-1])
+                 for t in ts)
+
+
+def mlstm_fwd_states_ref(k, v, log_i, log_f, chunk: int):
+    """The forward's state pass: the (C, n, m) state at each chunk's
+    start, (BH, nc, K, K), (BH, nc, K) and (BH, nc) f32, walking the
+    chunks in order from the zero state. The only serial part of
+    `mlstm_fwd`."""
+    bh, s, kd = k.shape
+    kc, vc = _per_chunk(k, v, chunk=chunk)
+    _, F, scale_s = _gates(log_i, log_f, chunk)
+    Ftot, top = F[..., -1], scale_s.amax(-1)
+    C = torch.zeros(bh, kd, kd, device=k.device)
+    n = torch.zeros(bh, kd, device=k.device)
+    m = torch.full((bh,), NEG, device=k.device)
+    Cs, ns, ms = [], [], []
+    for c in range(s // chunk):
+        Cs.append(C)
+        ns.append(n)
+        ms.append(m)
+        m_new = torch.maximum(m + Ftot[:, c], top[:, c])
+        wk = torch.exp(scale_s[:, c] - m_new[:, None])[..., None] * kc[:, c]
+        decay = torch.exp(m + Ftot[:, c] - m_new)
+        C = decay[:, None, None] * C + wk.transpose(1, 2) @ vc[:, c]
+        n = decay[:, None] * n + wk.sum(1)
+        m = m_new
+    return torch.stack(Cs, 1), torch.stack(ns, 1), torch.stack(ms, 1)
+
+
+def mlstm_fwd_out_ref(q, k, v, log_i, log_f, C_st, n_st, m_st, chunk: int):
+    """The forward's output pass, every chunk at once from the states at
+    each chunk's start: (h in q's dtype, m_loc, den (BH, S) f32)."""
+    bh, s, kd = q.shape
+    scale = kd ** -0.5
+    qc, kc, vc = _per_chunk(q, k, v, chunk=chunk)
+    li, F, _ = _gates(log_i, log_f, chunk)
+    W = F[..., :, None] - F[..., None, :] + li[..., None, :]
+    W = torch.where(tril_ones(chunk, q.device).bool(), W,
+                    torch.full_like(W, NEG))
+    g = m_st[..., None] + F
+    m_loc = torch.maximum(g, W.amax(-1))
+    c_int = torch.exp(g - m_loc)
+    P = torch.exp(W - m_loc[..., None]) * \
+        ((qc @ kc.transpose(-1, -2)) * scale)
+    qs = qc * scale
+    num = c_int[..., None] * (qs @ C_st) + P @ vc
+    den = c_int * (qs @ n_st[..., None])[..., 0] + P.sum(-1)
+    h = num / torch.maximum(den.abs(), torch.exp(-m_loc))[..., None]
+    return (h.reshape(bh, s, kd).to(q.dtype), m_loc.reshape(bh, s),
+            den.reshape(bh, s))
+
+
+def _bwd_rows(log_i, log_f, h, dh, aux, chunk: int):
+    """What both backward passes read, (BH, nc, L) f32 unless said: the
+    decay matrix A (BH, nc, L, L), c_int, w_s, the denominator max(|den|,
+    exp(-m_loc)), dden (the gradient of den, zero where the floor wins)
+    and each chunk's decay (BH, nc)."""
+    _, _, m_st, m_loc, den = aux
+    bh, s = log_i.shape
+    li, F, scale_s = _gates(log_i, log_f, chunk)
+    ml, dc = (x.reshape(bh, s // chunk, chunk) for x in (m_loc, den))
+    Ftot = F[..., -1]
+    m_new = torch.maximum(m_st + Ftot, scale_s.amax(-1))
+    W = F[..., :, None] - F[..., None, :] + li[..., None, :]
+    A = torch.where(tril_ones(chunk, li.device).bool(),
+                    torch.exp(W - ml[..., None]), torch.zeros_like(W))
+    floor = torch.exp(-ml)
+    denom = torch.maximum(dc.abs(), floor)
+    hd = (dh.float() * h.float()).sum(-1).reshape(dc.shape)
+    dden = torch.where(dc.abs() > floor, -torch.sign(dc) * hd / denom,
+                       torch.zeros_like(dc))
+    return (A, torch.exp(m_st[..., None] + F - ml),
+            torch.exp(scale_s - m_new[..., None]), denom, dden,
+            torch.exp(m_st + Ftot - m_new))
+
+
+def mlstm_bwd_dC_ref(q, log_i, log_f, h, dh, aux, chunk: int):
+    """The backward's reverse pass: the gradient of the state at each
+    chunk's end, dC (BH, nc, K, K) and dn (BH, nc, K) f32 (zero after the
+    last chunk), walking the chunks from the last. The only serial part
+    of `mlstm_bwd_dqdk`; its kernel writes these as its workspace."""
+    bh, s, kd = q.shape
+    nc = s // chunk
+    _, c_int, _, denom, dden, decay = _bwd_rows(log_i, log_f, h, dh, aux,
+                                                chunk)
+    qc, dhc = _per_chunk(q, dh, chunk=chunk)
+    cq = c_int[..., None] * (qc * kd ** -0.5)
+    dnum = dhc / denom[..., None]
+    dC = torch.zeros(bh, kd, kd, device=q.device)
+    dn = torch.zeros(bh, kd, device=q.device)
+    dCs, dns = [None] * nc, [None] * nc
+    for c in range(nc - 1, -1, -1):
+        dCs[c], dns[c] = dC, dn
+        dC = decay[:, c, None, None] * dC + \
+            cq[:, c].transpose(1, 2) @ dnum[:, c]
+        dn = decay[:, c, None] * dn + (dden[:, c, :, None] * cq[:, c]).sum(1)
+    return torch.stack(dCs, 1), torch.stack(dns, 1)
+
+
+def mlstm_bwd_dqdk_ref(q, k, v, log_i, log_f, h, dh, aux, dC, dn,
+                       chunk: int):
+    """dq, dk (BH, S, K) f32, every chunk at once from the states at each
+    chunk's start (aux) and the reverse pass's dC, dn at each chunk's
+    end."""
+    bh, s, kd = q.shape
+    scale = kd ** -0.5
+    C_st, n_st = aux[:2]
+    A, c_int, w_s, denom, dden, _ = _bwd_rows(log_i, log_f, h, dh, aux,
+                                              chunk)
+    qc, kc, vc, dhc = _per_chunk(q, k, v, dh, chunk=chunk)
+    dnum = dhc / denom[..., None]
+    dP = A * (dnum @ vc.transpose(-1, -2) + dden[..., None])
+    dq = (c_int[..., None] * (dnum @ C_st.transpose(-1, -2)
+                              + dden[..., None] * n_st[..., None, :])
+          + dP @ kc) * scale
+    dk = w_s[..., None] * (vc @ dC.transpose(-1, -2) + dn[..., None, :]) \
+        + dP.transpose(-1, -2) @ (qc * scale)
+    return dq.reshape(bh, s, kd), dk.reshape(bh, s, kd)
+
+
 # -------------------------------------------------------------- wrappers
 def _ptrs(*ts):
     return [t.data_ptr() for t in ts]
 
 
+def _aligned(t):
+    """t contiguous and starting on 16 bytes, as the kernels' cp.async
+    copies need (a view into a larger tensor may not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_bwd(q, k, v, log_i, log_f, h, dh, chunk: int) -> None:
+    _check(q, k, v, log_i, log_f, chunk)
+    if h.shape != q.shape or dh.shape != q.shape or h.dtype != q.dtype:
+        raise ValueError(f"h and dh must be {tuple(q.shape)} {q.dtype}; "
+                         f"got {tuple(h.shape)} {h.dtype}, "
+                         f"{tuple(dh.shape)}")
+
+
+def _f32(*shape, device):
+    return torch.empty(*shape, dtype=torch.float32, device=device)
+
+
 def mlstm_fwd(q, k, v, log_i, log_f, chunk: int, with_aux: bool = True):
     """(h in q's dtype, aux or None): the `mlstm_fwd` kernel for CUDA
     tensors, the plain version for CPU tensors. aux (what the backward
-    needs, see mlstm_fwd_ref) is written only with `with_aux`."""
+    needs, see mlstm_fwd_ref) is returned only with `with_aux`; the
+    kernel writes it either way, since its output pass reads the
+    states."""
     _check(q, k, v, log_i, log_f, chunk)
     if q.device.type == "cpu":
         h, aux = mlstm_fwd_ref(q, k, v, log_i, log_f, chunk)
         return h, (aux if with_aux else None)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t) for t in (q, k, v))
     li, lf = log_i.float().contiguous(), log_f.float().contiguous()
     bh, s, kd = q.shape
-    nc = s // chunk
+    nc, dev = s // chunk, q.device
     h = torch.empty_like(q)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    aux, ptrs = None, [0] * 5
-    if with_aux:
-        aux = (torch.empty(bh, nc, kd, kd, **f32),
-               torch.empty(bh, nc, kd, **f32), torch.empty(bh, nc, **f32),
-               torch.empty(bh, s, **f32), torch.empty(bh, s, **f32))
-        ptrs = _ptrs(*aux)
-    launch("mlstm_fwd", *_ptrs(q, k, v, li, lf, h), *ptrs, bh, s, kd, chunk,
-           _DTYPE_CODE[q.dtype], kd ** -0.5, device=q.device)
-    return h, aux
+    aux = (_f32(bh, nc, kd, kd, device=dev), _f32(bh, nc, kd, device=dev),
+           _f32(bh, nc, device=dev), _f32(bh, s, device=dev),
+           _f32(bh, s, device=dev))
+    ws = _f32(WS_ROWS, bh, s, device=dev)
+    launch("mlstm_fwd", *_ptrs(q, k, v, li, lf, h, *aux, ws), bh, s, kd,
+           chunk, _DTYPE_CODE[q.dtype], kd ** -0.5, device=dev)
+    return h, (aux if with_aux else None)
+
+
+def _launch_dqdk(q, k, v, li, lf, h, dh, aux, chunk: int):
+    bh, s, kd = q.shape
+    dev = q.device
+    dq, dk = _f32(bh, s, kd, device=dev), _f32(bh, s, kd, device=dev)
+    dC = _f32(bh, s // chunk, kd, kd, device=dev)
+    dn = _f32(bh, s // chunk, kd, device=dev)
+    ws = _f32(WS_ROWS, bh, s, device=dev)
+    launch("mlstm_bwd_dqdk", *_ptrs(q, k, v, li, lf, h, dh, *aux, dq, dk,
+                                    dC, dn, ws),
+           bh, s, kd, chunk, _DTYPE_CODE[q.dtype], kd ** -0.5, device=dev)
+    return dq, dk, dC, dn
+
+
+def mlstm_bwd_dqdk(q, k, v, log_i, log_f, h, dh, aux, chunk: int):
+    """(dq, dk, dC, dn), all f32: dq and dk as `mlstm_bwd` gives them,
+    and the gradient of the state at each chunk's end, dC (BH, nc, K, K)
+    and dn (BH, nc, K) (see mlstm_bwd_dC_ref). The `mlstm_bwd_dqdk`
+    kernel for CUDA tensors, which writes dC and dn as its workspace; the
+    plain passes for CPU tensors."""
+    _check_bwd(q, k, v, log_i, log_f, h, dh, chunk)
+    dh = dh.to(h.dtype)
+    if q.device.type == "cpu":
+        dC, dn = mlstm_bwd_dC_ref(q, log_i, log_f, h, dh, aux, chunk)
+        return (*mlstm_bwd_dqdk_ref(q, k, v, log_i, log_f, h, dh, aux, dC,
+                                    dn, chunk), dC, dn)
+    q, k, v, h, dh = (_aligned(t) for t in (q, k, v, h, dh))
+    li, lf = log_i.float().contiguous(), log_f.float().contiguous()
+    return _launch_dqdk(q, k, v, li, lf, h, dh,
+                        tuple(_aligned(t) for t in aux), chunk)
 
 
 def mlstm_bwd(q, k, v, log_i, log_f, h, dh, aux, chunk: int):
@@ -188,28 +380,22 @@ def mlstm_bwd(q, k, v, log_i, log_f, h, dh, aux, chunk: int):
     dh (taken in h's dtype) of (h, aux) = mlstm_fwd(...): the
     `mlstm_bwd_dqdk` and then the `mlstm_bwd_dv` kernel for CUDA
     tensors, the plain version for CPU tensors."""
-    _check(q, k, v, log_i, log_f, chunk)
-    if h.shape != q.shape or dh.shape != q.shape or h.dtype != q.dtype:
-        raise ValueError(f"h and dh must be {tuple(q.shape)} {q.dtype}; "
-                         f"got {tuple(h.shape)} {h.dtype}, "
-                         f"{tuple(dh.shape)}")
+    _check_bwd(q, k, v, log_i, log_f, h, dh, chunk)
     dh = dh.to(h.dtype)
     if q.device.type == "cpu":
         return mlstm_bwd_ref(q, k, v, log_i, log_f, h, dh, aux, chunk)
-    q, k, v, h, dh = (t.contiguous() for t in (q, k, v, h, dh))
+    q, k, v, h, dh = (_aligned(t) for t in (q, k, v, h, dh))
     li, lf = log_i.float().contiguous(), log_f.float().contiguous()
-    aux = tuple(t.contiguous() for t in aux)
+    aux = tuple(_aligned(t) for t in aux)
     bh, s, kd = q.shape
-    dq, dk, dv = (torch.empty(bh, s, kd, dtype=torch.float32,
-                              device=q.device) for _ in range(3))
-    dli, dlf = (torch.empty(bh, s, dtype=torch.float32, device=q.device)
-                for _ in range(2))
-    dims = (bh, s, kd, chunk, _DTYPE_CODE[q.dtype], kd ** -0.5)
+    dq, dk, _, _ = _launch_dqdk(q, k, v, li, lf, h, dh, aux, chunk)
+    dv = _f32(bh, s, kd, device=q.device)
+    dli, dlf = _f32(bh, s, device=q.device), _f32(bh, s, device=q.device)
     _, _, m_st, m_loc, den = aux
-    launch("mlstm_bwd_dqdk", *_ptrs(q, k, v, li, lf, h, dh, *aux, dq, dk),
-           *dims, device=q.device)
     launch("mlstm_bwd_dv", *_ptrs(q, k, li, lf, h, dh, m_st, m_loc, den, dq,
-                                  dk, dv, dli, dlf), *dims, device=q.device)
+                                  dk, dv, dli, dlf),
+           bh, s, kd, chunk, _DTYPE_CODE[q.dtype], kd ** -0.5,
+           device=q.device)
     return dq, dk, dv, dli, dlf
 
 

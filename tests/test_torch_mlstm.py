@@ -2,7 +2,10 @@
 version against the Pallas kernel in interpret mode and the reference's
 stepwise and model-level oracles, and the autograd.Function's backward
 (the plain backward, on the CPU) against jax.vjp of the reference's
-model-level function."""
+model-level function, and the plain versions of the kernels' passes
+against both."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -177,3 +180,75 @@ def test_cpu_tensors_never_count_kernel_launches():
     ops.mlstm_chunkwise(*ins, chunk=16).sum().backward()
     assert ml.LAUNCHES == {"mlstm_fwd": 0, "mlstm_bwd_dqdk": 0,
                            "mlstm_bwd_dv": 0}
+
+
+# the kernels' passes, composed, against the Pallas kernel, jax.vjp and
+# the one-pass plain versions: K 64 and 192, chunks 16 and 20, three or
+# four chunks so that the state carries, f32 and bf16
+PASS_CASES = [(64, 16, 48, torch.float32), (192, 20, 60, torch.float32),
+              (64, 20, 80, torch.bfloat16), (192, 16, 48, torch.bfloat16)]
+
+
+@functools.partial(jax.jit, static_argnames="chunk")
+def _vjp_at(q, k, v, li, lf, dh, chunk):
+    fn = lambda *a: jxlstm.mlstm_chunkwise(
+        *(x[:, None] for x in a), None, chunk=chunk)[0][:, 0]
+    return jax.vjp(fn, q, k, v, li, lf)[1](dh)
+
+
+@functools.lru_cache(maxsize=None)
+def _pass_case(kd, chunk, s, dtype):
+    """Seeded inputs (q, k, v, dh rounded to `dtype`) and the JAX
+    package's h (Pallas, interpret mode) and dq, dk (jax.vjp of the
+    model-level function) on them, computed once per case."""
+    ins = _inputs(kd + chunk, 2, s, kd, scale=1.0, li_sd=1.0, li_mean=1.0)
+    dh = _x(kd + 7, 2, s, kd)
+    t = [torch.from_numpy(a) for a in ins]
+    t[:3] = [x.to(dtype) for x in t[:3]]
+    dht = torch.from_numpy(dh).to(dtype)
+    j = [jnp.asarray(x.float().numpy()) for x in t]
+    pallas = jops.mlstm_chunkwise(*j, chunk=chunk, interpret=True)
+    dq, dk = _vjp_at(*j, jnp.asarray(dht.float().numpy()), chunk=chunk)[:2]
+    return t, dht, np.asarray(pallas), np.asarray(dq), np.asarray(dk)
+
+
+@pytest.mark.parametrize("kd,chunk,s,dtype", PASS_CASES)
+def test_forward_passes_match_pallas_and_the_one_pass_forward(kd, chunk, s,
+                                                              dtype):
+    t, _, pallas, _, _ = _pass_case(kd, chunk, s, dtype)
+    C, n, m = ml.mlstm_fwd_states_ref(t[1], t[2], t[3], t[4], chunk)
+    h, m_loc, den = ml.mlstm_fwd_out_ref(*t, C, n, m, chunk)
+    assert h.dtype == dtype and h.shape == (2, s, kd)
+    if dtype == torch.float32:
+        _close(h, pallas, FWD_TOL)
+    else:
+        assert _rel(h, pallas) <= BF16_TOL
+    want_h, want_aux = ml.mlstm_fwd_ref(*t, chunk)
+    assert _rel(h, want_h.float().numpy()) <= FWD_TOL
+    for got, want in zip((C, n, m[:, 1:], m_loc, den),
+                         (*want_aux[:2], want_aux[2][:, 1:], *want_aux[3:])):
+        assert _rel(got, want.numpy()) <= FWD_TOL
+    assert torch.equal(m[:, 0], want_aux[2][:, 0])   # -1e30 both
+
+
+@pytest.mark.parametrize("kd,chunk,s,dtype", PASS_CASES)
+def test_backward_passes_match_jax_vjp_and_the_one_pass_backward(kd, chunk,
+                                                                 s, dtype):
+    t, dh, _, jdq, jdk = _pass_case(kd, chunk, s, dtype)
+    h, aux = ml.mlstm_fwd_ref(*t, chunk)
+    dC, dn = ml.mlstm_bwd_dC_ref(t[0], t[3], t[4], h, dh, aux, chunk)
+    nc = s // chunk
+    assert dC.shape == (2, nc, kd, kd) and dn.shape == (2, nc, kd)
+    # nothing follows the last chunk
+    assert not dC[:, -1].any() and not dn[:, -1].any()
+    dq, dk = ml.mlstm_bwd_dqdk_ref(*t, h, dh, aux, dC, dn, chunk)
+    # the JAX side keeps h in f32 where bf16 rounds it (dh.h in dden)
+    tol = GRAD_TOL if dtype == torch.float32 else BF16_TOL
+    assert _rel(dq, jdq) <= tol and _rel(dk, jdk) <= tol
+    want = ml.mlstm_bwd_ref(*t, h, dh, aux, chunk)
+    assert _rel(dq, want[0].numpy()) <= GRAD_TOL
+    assert _rel(dk, want[1].numpy()) <= GRAD_TOL
+    # the dq/dk wrapper on CPU tensors runs these passes
+    got = ml.mlstm_bwd_dqdk(*t, h, dh, aux, chunk)
+    for g, w in zip(got, (dq, dk, dC, dn)):
+        assert torch.equal(g, w)
