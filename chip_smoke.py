@@ -7,11 +7,11 @@ Phases (each failure exits non-zero):
      each kernel instance's registers and spills (ptxas); every
      attention instance (forward, dq, dkdv), every grouped matmul
      instance (gmm_mma_kernel: three products, wide and narrow) and
-     every instance of the mLSTM forward's and dq/dk gradient's passes
-     with products (state walks, output and dq/dk passes) must issue
-     tensor-core instructions (HMMA in its SASS), no instance of those
-     three libraries may spill, and no other kernel may be in them (the
-     mLSTM's scalar passes and mlstm_bwd_dv have no HMMA);
+     every instance of the mLSTM kernels' passes with products (state
+     walks, output, dq/dk and dv passes) must issue tensor-core
+     instructions (HMMA in its SASS), no instance of those three
+     libraries may spill, and no other kernel may be in them (the
+     mLSTM's scalar passes have no HMMA);
   2. kernels: every CUDA kernel of the main paths against its plain
      PyTorch version on the card (tolerances below; the kernels' outputs
      are allocated filled with NaN, so one left unwritten fails),
@@ -23,8 +23,9 @@ Phases (each failure exits non-zero):
      each of its three kernels must beat at both of the MoE path's
      shapes; both timed in turns with the kernel; none for the RG-LRU
      scan and the chunkwise mLSTM); the mLSTM's dq/dk kernel's dC
-     workspace against its plain reverse pass, and the device time of
-     each pass of the two multi-pass mLSTM kernels;
+     workspace against its plain reverse pass, the dv kernel on that
+     workspace against its plain pass on the same dC, dq and dk, and
+     the device time of each pass of the three mLSTM kernels;
   3. reference: the engine on the card against the same engine on the
      CPU (plain versions) at the campaign's tiny GPT and at the reduced
      Qwen1.5-MoE config, and make_train_step on the card against the
@@ -162,9 +163,10 @@ SCAN = ("rglru_fwd", "rglru_bwd")
 MLSTM = ("mlstm_fwd", "mlstm_bwd_dqdk", "mlstm_bwd_dv")
 # the mLSTM library's kernels, with and without tensor-core products
 MLSTM_TC = ("mlstm_fwd_state_kernel", "mlstm_fwd_out_kernel",
-            "mlstm_bwd_dqdk_state_kernel", "mlstm_bwd_dqdk_grad_kernel")
+            "mlstm_bwd_dqdk_state_kernel", "mlstm_bwd_dqdk_grad_kernel",
+            "mlstm_bwd_dv_grad_kernel")
 MLSTM_NO_TC = ("mlstm_fwd_scalars_kernel", "mlstm_bwd_dqdk_scalars_kernel",
-               "mlstm_bwd_dv_kernel")
+               "mlstm_bwd_dv_scalars_kernel")
 SOURCES = {**{n: ("src/repro_torch/kernels/csrc/flash_attention.cu",
                   "src/repro/kernels/flash_attention.py:24")
               for n in FLASH},
@@ -711,10 +713,12 @@ def mlstm_work(name, bh, s, k, chunk, dtype):
         flops = bh * nc * (6 * L * k * k + 6 * k * pairs + 6 * L * k)
         return flops, (5 * row * el + 4 * gates + states
                        + 2 * row * 4)
-    # dv: k dC, dC update; q k^T, (A * qk)^T dnum; dh.h, q.dq, k.dk
-    flops = bh * nc * (4 * L * k * k + 4 * k * pairs + 6 * L * k)
-    return flops, (4 * row * el + 2 * row * 4 + 4 * gates + bh * nc * 4
-                   + row * 4 + 2 * gates)
+    # dv: k dC; q k^T, P'^T dh; q.dq, k.dk. Reads q, k, dh, dq, dk, the
+    # dC workspace once, log_i, m_loc and the workspace's F, w and
+    # denominator; writes dv, dlog_i, dlog_f
+    flops = bh * nc * (2 * L * k * k + 4 * k * pairs + 4 * L * k)
+    return flops, (3 * row * el + 2 * row * 4 + bh * nc * k * k * 4
+                   + 5 * gates + row * 4 + 2 * gates)
 
 
 def mlstm_inputs(gen, bh, s, k, dtype):
@@ -782,15 +786,22 @@ def check_mlstm(ml):
                           for g, w in zip(got[n], want[n]))
         del rgrads, want, own
         # the dq/dk kernel's workspace, dC and dn at each chunk's end,
-        # against the plain reverse pass
+        # against the plain reverse pass; the dv kernel, from that dC and
+        # its row workspace, against its plain pass on the same dC, dq, dk
+        rel = lambda g, w: ((g - w).abs().max()
+                            / w.abs().max().clamp(min=1e-30)).item()
         with unwritten_is_nan():
-            _, _, dC, dn = ml.mlstm_bwd_dqdk(*ins, rh, dh, raux, chunk)
+            dq, dk, dC, dn, ws = ml._launch_dqdk(*ins, rh, dh, raux, chunk)
+            dv_pass = ml.mlstm_bwd_dv(ins[0], ins[1], ins[3], ins[4], rh, dh,
+                                      raux, dC, dq, dk, chunk, ws=ws)
         torch.cuda.synchronize()
         rdC, rdn = ml.mlstm_bwd_dC_ref(ins[0], ins[3], ins[4], rh, dh, raux,
                                        chunk)
-        dC_rel = max(((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
-                     .item() for g, w in ((dC, rdC), (dn, rdn)))
-        del dC, dn, rdC, rdn
+        dC_rel = max(rel(g, w) for g, w in ((dC, rdC), (dn, rdn)))
+        del rdC, rdn
+        dv_rel = max(rel(g, w) for g, w in zip(dv_pass, ml.mlstm_bwd_dv_ref(
+            ins[0], ins[1], ins[3], ins[4], rh, dh, raux, dC, dq, dk, chunk)))
+        del dq, dk, dC, dn, ws, dv_pass
         with unwritten_is_nan():
             h2, aux2 = ml.mlstm_fwd(*ins, chunk)
             grads2 = ml.mlstm_bwd(*ins, rh, dh, raux, chunk)
@@ -802,10 +813,10 @@ def check_mlstm(ml):
                  f"(floor wins on {floor:.3f} of rows)")
         print(f"  {label}: " + ", ".join(
             f"{n} err {errs[n]:.3e} (rel {rels[n]:.2e}, tol {tol:g})"
-            for n in MLSTM) + f", dC workspace rel {dC_rel:.2e}, bitwise "
-            f"repeat {repeat}", flush=True)
-        if not repeat or dC_rel > tol or not all(rels[n] <= tol
-                                                  for n in MLSTM):
+            for n in MLSTM) + f", dC workspace rel {dC_rel:.2e}, dv pass "
+            f"on it rel {dv_rel:.2e}, bitwise repeat {repeat}", flush=True)
+        if not repeat or dC_rel > tol or dv_rel > tol or \
+                not all(rels[n] <= tol for n in MLSTM):
             raise SystemExit(f"mLSTM check failed at {label}")
         if c == XL_MLSTM:
             results = {n: {"max_abs_err": errs[n]} for n in MLSTM}
@@ -830,11 +841,12 @@ def time_mlstm(ml, results, shape, ins, h, dh, aux):
             "mlstm_bwd_dqdk", *ptr(q, kk, v, li, lf, h, dh, *aux, dq, dk, dC,
                                    dn, ws), *dims, device=q.device),
         "mlstm_bwd_dv": lambda: ml.launch(
-            "mlstm_bwd_dv", *ptr(q, kk, li, lf, h, dh, *aux[2:], dq, dk, dv,
+            "mlstm_bwd_dv", *ptr(q, kk, li, dh, aux[3], dC, ws, dq, dk, dv,
                                  dli, dlf), *dims, device=q.device)}
-    # device time of each pass of one call of the two multi-pass kernels
+    # device time of each pass of one call of each kernel, in this order:
+    # mlstm_bwd_dv reads what mlstm_bwd_dqdk wrote
     from torch.profiler import ProfilerActivity, profile
-    for name in MLSTM[:2]:
+    for name in MLSTM:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             kern[name]()
@@ -1441,12 +1453,12 @@ def main() -> int:
                           3 * len(fa.HEAD_DIMS) * len(fa._DTYPE_CODE))
     tensor_core_instances(libs, "moe_gmm", ("gmm_mma_kernel",),
                           3 * 2 * len(gm._DTYPE_CODE))
-    # the mLSTM forward's and dq/dk gradient's passes: their products on
-    # the tensor cores (state walks, output and dq/dk passes, f32 and
-    # bf16); the scalar passes do no products, and mlstm_bwd_dv keeps its
-    # FMA loops
+    # the mLSTM kernels' passes: their products on the tensor cores
+    # (state walks, output, dq/dk and dv passes, f32 and bf16); the scalar
+    # passes do no products (dq/dk's per dtype, the forward's and dv's
+    # once: they read only f32)
     tensor_core_instances(libs, "mlstm", MLSTM_TC + MLSTM_NO_TC,
-                          6 * len(ml._DTYPE_CODE) + 1,
+                          6 * len(ml._DTYPE_CODE) + 2,
                           without=MLSTM_NO_TC)
 
     print("[kernels] against the plain versions", flush=True)

@@ -57,9 +57,9 @@ SIGNATURES = {
         # q, k, v, log_i, log_f, h, dh, C_st, n_st, m_st, m_loc, den, dq,
         # dk, dC, dn, ws, bh, s, k_dim, chunk, dtype, scale, stream
         "mlstm_bwd_dqdk": [P] * 17 + [I] * 5 + [F, P],
-        # q, k, log_i, log_f, h, dh, m_st, m_loc, den, dq, dk, dv,
+        # q, k, log_i, dh, m_loc, dC, ws (mlstm_bwd_dqdk's), dq, dk, dv,
         # dlog_i, dlog_f, bh, s, k_dim, chunk, dtype, scale, stream
-        "mlstm_bwd_dv": [P] * 14 + [I] * 5 + [F, P],
+        "mlstm_bwd_dv": [P] * 12 + [I] * 5 + [F, P],
     },
 }
 

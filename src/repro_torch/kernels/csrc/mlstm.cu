@@ -36,28 +36,30 @@
 //                      dq = scale (c_int (dnum C^T + dden n) + dP k) on
 //                      four warps and dk = w (v dC^T + dn) + dP^T (scale q)
 //                      on the other four.
-//   mlstm_bwd_dv    block (column tile j, head), chunks in reverse,
-//                   carrying dC[:, j] (K x 64) in shared memory with plain
-//                   FMA loops: dv[:, j]. The head's first tile also writes
-//                   dlog_i_s = k_s.dk_s and dlog_f_t = sum_{j>=t} (q_j.dq_j
-//                   - k_j.dk_j), a cumulative sum carried across chunks in
-//                   reverse; it runs after mlstm_bwd_dqdk, whose dq and dk
-//                   it reads.
+//   mlstm_bwd_dv    two passes, after mlstm_bwd_dqdk, from its dq, dk, dC
+//                   workspace and rows F, w and the denominator:
+//     _grad_kernel     block per (chunk, head): each row's q.dq and k.dk,
+//                      hence dlog_i = k.dk and dF = q.dq - k.dk; P' = A *
+//                      (q k^T) scale / denominator_t once, into shared
+//                      memory; then, per 64-column tile j, dv = w (k dC) +
+//                      P'^T dh.
+//     _scalars_kernel  block per head: dlog_f_t = sum_{j>=t} dF_j over the
+//                      whole sequence, warp scans in one fixed order.
 // The backward treats every stabilizer as a constant (they cancel from
 // h exactly; see kernels/mlstm.py). Every block owns its outputs and
 // every sum runs in one fixed order, with no atomics, so results repeat
 // bitwise from run to run.
 //
-// Products of the forward and the dq/dk passes run on the tensor cores:
-// warp-level mma.sync m16n8k8 as 3xTF32 (each f32 operand split into a
-// TF32 big and small part as it leaves shared memory; mma_sm90.cuh), so
-// they keep f32 accuracy; bf16 inputs are exact in TF32 and take the same
-// path. Operands are 64 x 64 tiles kept in their input type in shared
-// memory, rows padded so that the fragment reads of a warp hit distinct
-// banks. Each 64-long slice of a reduction sums into a fresh accumulator
-// that is added to the running one in f32 (the tensor cores truncate
-// their sums). Row scalings (1 / denominator, c_int, scale) are applied
-// after a product where they factor out of it.
+// Every product runs on the tensor cores: warp-level mma.sync m16n8k8 as
+// 3xTF32 (each f32 operand split into a TF32 big and small part as it
+// leaves shared memory; mma_sm90.cuh), so they keep f32 accuracy; bf16
+// inputs are exact in TF32 and take the same path. Operands are 64 x 64
+// tiles kept in their input type in shared memory, rows padded so that
+// the fragment reads of a warp hit distinct banks. Each 64-long slice of
+// a reduction sums into a fresh accumulator that is added to the running
+// one in f32 (the tensor cores truncate their sums). Row scalings (1 /
+// denominator, c_int, scale) are applied after a product where they
+// factor out of it.
 //
 // Layout: q, k, v, h, dh contiguous (BH, S, K) in T (float or bf16), 16-
 // byte aligned; log_i, log_f, m_loc, den, dlog_i, dlog_f (BH, S) f32; C
@@ -73,9 +75,10 @@
 // again. mlstm_bwd_dqdk needs 54.9 GFLOP (0.33 ms, the bound) and moves
 // its dC workspace out and back (1.07 GB, 0.32 ms). The state walks are
 // the serial part, about a third of each kernel's FLOPs, spread over
-// (K / 64)^2 tiles a head. mlstm_bwd_dv keeps its first design: plain
-// FMA loops, 128 blocks of ~200 KB at the path's shape, q k^T
-// recomputed by each column tile.
+// (K / 64)^2 tiles a head. mlstm_bwd_dv needs 19.4 GFLOP (0.12 ms) and
+// moves 0.94 GB (0.28 ms, the bound), 537 MB of it the dC workspace, which
+// it reads once: one block per (chunk, head), where its first design
+// walked the chunks in order in 128 blocks with plain FMA loops.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,10 +89,8 @@
 
 namespace {
 
-constexpr int NT = 256;           // threads per block: 16 x 16
 constexpr int TILE = 64;          // column tile of C and K/V slice
 constexpr int LMAX = 64;          // largest chunk
-constexpr int PAD = TILE + 1;     // row stride of [64][64] tiles
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -105,33 +106,6 @@ from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// Inclusive cumsum of F[0..L) in place, by thread 0 in order.
-__device__ __forceinline__ void cumsum_serial(float* F, int L) {
-  if (threadIdx.x == 0) {
-    float acc = 0.f;
-    for (int t = 0; t < L; ++t) {
-      acc += F[t];
-      F[t] = acc;
-    }
-  }
-}
-
-// m_new = max(m + Ftot, max_s(li_s + Ftot - F_s)) and the decay of the
-// carried state exp(m + Ftot - m_new), by thread 0: sc = {m_new, decay,
-// Ftot}.
-__device__ __forceinline__ void carry_scalars(const float* F,
-                                              const float* li, float m,
-                                              int L, float* sc) {
-  if (threadIdx.x == 0) {
-    const float Ftot = F[L - 1];
-    float mn = m + Ftot;
-    for (int s = 0; s < L; ++s) mn = fmaxf(mn, li[s] + Ftot - F[s]);
-    sc[0] = mn;
-    sc[1] = expf(m + Ftot - mn);
-    sc[2] = Ftot;
-  }
-}
-
 // ------------------------------------------------- tensor-core helpers
 constexpr int NT4 = 128;          // threads of a block of 4 warps
 constexpr int NT8 = 256;          // of 8 warps
@@ -144,6 +118,7 @@ constexpr int ST_STAGE = 2 * REG + 2 * TILE + 8;
 // A dq/dk stage: four tiles, then n and dn of a 64-row tile.
 constexpr int GR_STAGE = 4 * REG + 2 * TILE;
 constexpr int LDP = 68;           // row stride of the L x L P and dP (f32)
+constexpr int LDT = 72;           // of dv's P', read down its columns
 
 // Row strides (elements) of a 64-wide tile in shared memory. ROW: the
 // fragments read along a stored row (the reduction runs along it), COL:
@@ -866,209 +841,192 @@ mlstm_bwd_dqdk_grad_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_wait<0>();
 }
 
-// Per-chunk row quantities mlstm_bwd_dv_kernel needs, in shared
-// memory: F (inclusive cumsum), li, mloc, cint = exp(m + F - mloc),
-// denom = max(|den|, exp(-mloc)), dden (the gradient of den, zero where
-// the floor wins), w = exp(li + Ftot - F - m_new); sc = {m_new, decay,
-// Ftot}. `part` ([LMAX][4]) takes the dh.h partial sums. Ends synced.
-template <typename T>
-__device__ void bwd_rows(const T* __restrict__ h, const T* __restrict__ dh,
-                         const float* __restrict__ li_g,
-                         const float* __restrict__ lf_g,
-                         const float* __restrict__ mloc_g,
-                         const float* __restrict__ den_g, float m,
-                         int64_t row0, int K, int L, float* F, float* li,
-                         float* mloc, float* cint, float* denom,
-                         float* dden, float* w, float* part, float* sc) {
-  const int tid = threadIdx.x;
-  __syncthreads();
-  if (tid < L) {
-    li[tid] = li_g[row0 + tid];
-    F[tid] = lf_g[row0 + tid];
-    mloc[tid] = mloc_g[row0 + tid];
-    denom[tid] = den_g[row0 + tid];
-  }
-  {
-    const int t = tid / 4, p = tid % 4;
-    float acc = 0.f;
-    if (t < L)
-      for (int j = p; j < K; j += 4)
-        acc = fmaf(to_f(dh[(row0 + t) * K + j]), to_f(h[(row0 + t) * K + j]),
-                   acc);
-    part[t * 4 + p] = acc;
-  }
-  __syncthreads();
-  cumsum_serial(F, L);
-  __syncthreads();
-  carry_scalars(F, li, m, L, sc);
-  __syncthreads();
-  if (tid < L) {
-    const int t = tid;
-    const float d = denom[t], fl = expf(-mloc[t]);
-    const float dd = fmaxf(fabsf(d), fl);
-    const float hd = ((part[4 * t] + part[4 * t + 1]) + part[4 * t + 2]) +
-                     part[4 * t + 3];
-    dden[t] = fabsf(d) > fl ? (d > 0.f ? -hd / dd : hd / dd) : 0.f;
-    denom[t] = dd;
-    cint[t] = expf(m + F[t] - mloc[t]);
-    w[t] = expf(li[t] + sc[2] - F[t] - sc[0]);
-  }
-  __syncthreads();
+// Four f32 of T (16 or 8 bytes) from device memory.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // ------------------------------------- backward: dv and the log gates
+// Block (chunk, head), 4 warps. First each row's q.dq and k.dk over all K
+// columns (a warp a row, 16 bytes a lane): dlog_i = k.dk, and dF = q.dq -
+// k.dk into dlog_f, which the scalar pass then sums. Then steps, each one
+// stage of the cp.async ring: K / 64 slices of q k^T, after which P' = A *
+// (q k^T) scale / denominator_t goes to shared memory (t is the next
+// product's reduction index, so 1 / denominator_t cannot be applied after
+// it); then, per 64-column tile j of dv, K / 64 slices of k dC[:, j] and
+// one step of P'^T dh[:, j], after which dv[:, j] = w (k dC[:, j]) + P'^T
+// dh[:, j] is written. dC is the state's gradient at the chunk's end, as
+// mlstm_bwd_dqdk's walk wrote it; F, w and the denominator are its
+// workspace rows 0, 2 and 3.
 template <typename T>
-__global__ void __launch_bounds__(NT)
-mlstm_bwd_dv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const float* __restrict__ li_g,
-                    const float* __restrict__ lf_g,
-                    const T* __restrict__ h, const T* __restrict__ dh,
-                    const float* __restrict__ mst,
-                    const float* __restrict__ mloc_g,
-                    const float* __restrict__ den_g,
-                    const float* __restrict__ dq,
-                    const float* __restrict__ dk, float* __restrict__ dv,
-                    float* __restrict__ dli, float* __restrict__ dlf,
-                    int S, int K, int L, float scale) {
+__global__ void __launch_bounds__(NT4, 2)
+mlstm_bwd_dv_grad_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ dh,
+                         const float* __restrict__ li_g,
+                         const float* __restrict__ mloc_g,
+                         const float* __restrict__ dCw, const float* ws,
+                         const float* __restrict__ dq,
+                         const float* __restrict__ dk, float* __restrict__ dv,
+                         float* __restrict__ dli, float* __restrict__ dlf,
+                         int BH, int S, int K, int L, float scale) {
   extern __shared__ float sm[];
-  float* dCs = sm;                      // [K][TILE] dC[:, this tile]
-  float* qs = dCs + K * TILE;           // [LMAX][PAD] q slice
-  float* ks = qs + LMAX * PAD;          // [LMAX][PAD] k slice
-  float* dnm = ks + LMAX * PAD;         // [LMAX][PAD] dnum[:, tile]
-  float* Ps = dnm + LMAX * PAD;         // [LMAX][PAD] A * qk
-  float* F = Ps + LMAX * PAD;           // [LMAX] each from here
-  float* li = F + LMAX;
-  float* mloc = li + LMAX;
-  float* cint = mloc + LMAX;
-  float* denom = cint + LMAX;
-  float* dden = denom + LMAX;
-  float* w = dden + LMAX;
-  float* part = w + LMAX;               // [LMAX][4]
-  float* part2 = part + 4 * LMAX;       // [LMAX][4]
-  float* sc = part2 + 4 * LMAX;         // [4]
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int vt = blockIdx.x;
+  constexpr int LDR = Ld<T>::ROW, LDC = Ld<T>::COL;
+  float* Ps = sm + 2 * ST_STAGE;        // [64][LDT] P', read transposed
+  float* F = Ps + TILE * LDT;           // [64] each from here
+  float* li = F + TILE;
+  float* ml = li + TILE;
+  float* w = ml + TILE;
+  float* dd = w + TILE;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c = blockIdx.x;
   const int64_t b = blockIdx.y;
-  const int64_t col = (int64_t)vt * TILE;
-  const int nc = S / L;
-  float carry = 0.f;                    // thread 0 of tile 0: sum of dF
-
-  for (int i = tid; i < K * TILE; i += NT) dCs[i] = 0.f;
-
-  for (int c = nc - 1; c >= 0; --c) {
-    const int64_t row0 = b * S + (int64_t)c * L;
-    bwd_rows(h, dh, li_g, lf_g, mloc_g, den_g, mst[b * nc + c], row0, K,
-             L, F, li, mloc, cint, denom, dden, w, part, sc);
-    const float decay = sc[1];
-    for (int i = tid; i < LMAX * TILE; i += NT) {
-      const int t = i / TILE, j = i % TILE;
-      dnm[t * PAD + j] =
-          t < L ? to_f(dh[(row0 + t) * K + col + j]) / denom[t] : 0.f;
+  const int nc = S / L, ns = K / TILE;
+  const int64_t N = (int64_t)BH * S, row0 = b * S + (int64_t)c * L;
+  const float* dCc = dCw + (b * nc + c) * K * K;
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
+  if (tid < TILE) {
+    const bool in = tid < L;
+    const int64_t row = row0 + tid;
+    F[tid] = in ? ws[row] : 0.f;
+    li[tid] = in ? li_g[row] : 0.f;
+    ml[tid] = in ? mloc_g[row] : 0.f;
+    w[tid] = in ? ws[2 * N + row] : 0.f;
+    dd[tid] = in ? ws[3 * N + row] : 1.f;
+  }
+  auto load = [&](int stage, int i) {
+    float* s = sm + stage * ST_STAGE;
+    T* r0s = reinterpret_cast<T*>(s);
+    if (i < ns) {
+      load_tile<T, NT4>(r0s, LDR, q + row0 * K + i * TILE, K, L);
+      load_tile<T, NT4>(reinterpret_cast<T*>(s + REG), LDR,
+                        k + row0 * K + i * TILE, K, L);
+      return;
     }
-
-    // over k in 64-wide slices: q k^T, k dC[:, tile] (as carried in),
-    // then dC[slice, tile] += (cint q)^T dnum
-    float aqk[4][4], adv[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) aqk[i][j] = adv[i][j] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += TILE) {
-      __syncthreads();
-      for (int i = tid; i < LMAX * TILE; i += NT) {
-        const int t = i / TILE, kk = i % TILE;
-        float a = 0.f, bb = 0.f;
-        if (t < L) {
-          a = to_f(q[(row0 + t) * K + k0 + kk]);
-          bb = to_f(k[(row0 + t) * K + k0 + kk]);
-        }
-        qs[t * PAD + kk] = a;
-        ks[t * PAD + kk] = bb;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < TILE; ++kk) {
-        float a[4], kr[4], bk[4], dc[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a[i] = qs[(ty + 16 * i) * PAD + kk];
-          kr[i] = ks[(ty + 16 * i) * PAD + kk];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          bk[j] = ks[(tx + 16 * j) * PAD + kk];
-          dc[j] = dCs[(k0 + kk) * TILE + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            aqk[i][j] = fmaf(a[i], bk[j], aqk[i][j]);
-            adv[i][j] = fmaf(kr[i], dc[j], adv[i][j]);
-          }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = ty + 16 * i, cc = tx + 16 * j;
-          float acc = 0.f;
-          for (int t = 0; t < L; ++t)
-            acc = fmaf(cint[t] * (qs[t * PAD + r] * scale),
-                       dnm[t * PAD + cc], acc);
-          float* dp = &dCs[(k0 + r) * TILE + cc];
-          *dp = decay * *dp + acc;
-        }
+    const int j = (i - ns) / (ns + 1), sl = (i - ns) % (ns + 1);
+    if (sl < ns) {
+      load_tile<T, NT4>(r0s, LDR, k + row0 * K + sl * TILE, K, L);
+      load_tile<float, NT4>(s + REG, 72, dCc + (int64_t)sl * TILE * K +
+                                             j * TILE, K, TILE);
+    } else {
+      load_tile<T, NT4>(r0s, LDC, dh + row0 * K + j * TILE, K, L);
     }
+  };
+  const int steps = ns + ns * (ns + 1);
+  load(0, 0);
+  cp_commit();
 
-    // dv = w * (k dC) + (A * qk)^T dnum
+  // the log gates' row sums, under the first stage's copies
+  for (int t = warp; t < L; t += NT4 / 32) {
+    const int64_t o = (row0 + t) * K;
+    float a1 = 0.f, a2 = 0.f;
+    for (int x = 4 * lane; x < K; x += 128) {
+      const float4 qv = ld4(q + o + x), dqv = ld4(dq + o + x);
+      const float4 kv = ld4(k + o + x), dkv = ld4(dk + o + x);
+      a1 = fmaf(qv.x, dqv.x, a1);
+      a1 = fmaf(qv.y, dqv.y, a1);
+      a1 = fmaf(qv.z, dqv.z, a1);
+      a1 = fmaf(qv.w, dqv.w, a1);
+      a2 = fmaf(kv.x, dkv.x, a2);
+      a2 = fmaf(kv.y, dkv.y, a2);
+      a2 = fmaf(kv.z, dkv.z, a2);
+      a2 = fmaf(kv.w, dkv.w, a2);
+    }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int m = 16; m; m >>= 1) {
+      a1 += __shfl_xor_sync(FULL, a1, m);
+      a2 += __shfl_xor_sync(FULL, a2, m);
+    }
+    if (lane == 0) {
+      dli[row0 + t] = a2;
+      dlf[row0 + t] = a1 - a2;
+    }
+  }
+
+  // P': warps 2 x 2 over 64 x 64, each 32 x 32
+  float accs[2][4][4] = {};
+  ring(0, ns, steps, ST_STAGE, sm, load, [&](int, const float* s) {
+    const T* qs = reinterpret_cast<const T*>(s);
+    const T* ks = reinterpret_cast<const T*>(s + REG);
+    float part[2][4][4] = {};
+    warp_mma<2, 4, 8>(
+        part, [&](int r, int kk) { return to_f(qs[(wm + r) * LDR + kk]); },
+        [&](int kk, int col) { return to_f(ks[(wn + col) * LDR + kk]); });
+    add_to(accs, part);
+  });
+  each_pair<2, 4>([&](int r, int col, int ii, int jj, int e) {
+    const int t = wm + r;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = ty + 16 * i, s = tx + 16 * j;
-        float p = 0.f;
-        if (s <= t && t < L)
-          p = expf(F[t] - F[s] + li[s] - mloc[t]) * (aqk[i][j] * scale);
-        Ps[t * PAD + s] = p;
-      }
+    for (int x = 0; x < 2; ++x) {
+      const int sx = wn + col + x;
+      float p = 0.f;
+      if (sx <= t && t < L)
+        p = expf(((F[t] - F[sx]) + li[sx]) - ml[t]) *
+            ((accs[ii][jj][e + x] * scale) / dd[t]);
+      Ps[t * LDT + sx] = p;
+    }
+  });
+
+  // dv; the next step's barrier precedes every read of P'
+  float acc[2][4][4] = {};
+  ring(ns, steps, steps, ST_STAGE, sm, load, [&](int i, const float* s) {
+    const int j = (i - ns) / (ns + 1), sl = (i - ns) % (ns + 1);
+    const T* r0s = reinterpret_cast<const T*>(s);
+    float part[2][4][4] = {};
+    if (sl < ns) {
+      const float* cs = s + REG;
+      warp_mma<2, 4, 8>(
+          part, [&](int r, int kk) { return to_f(r0s[(wm + r) * LDR + kk]); },
+          [&](int kk, int col) { return cs[kk * 72 + wn + col]; });
+      add_to(acc, part);
+      return;
+    }
+    warp_mma<2, 4, 8>(
+        part, [&](int r, int t) { return Ps[t * LDT + wm + r]; },
+        [&](int t, int col) { return to_f(r0s[t * LDC + wn + col]); });
+    float* out = dv + (row0 + wm) * K + j * TILE + wn;
+    each_pair<2, 4>([&](int r, int col, int ii, int jj, int e) {
+      const int sx = wm + r;
+      if (sx < L)
+        *reinterpret_cast<float2*>(out + (int64_t)r * K + col) = make_float2(
+            w[sx] * acc[ii][jj][e] + part[ii][jj][e],
+            w[sx] * acc[ii][jj][e + 1] + part[ii][jj][e + 1]);
+    });
+    zero(acc);
+  });
+  cp_wait<0>();
+}
+
+// ---------------------------------------- backward: dlog_f's scalar pass
+// Block per head: dlog_f_t = sum_{j >= t} dF_j over the head's rows, in
+// place of dF. NT8 rows a step from the last: a warp scan over 32 rows,
+// then each warp adds the sums of the warps before it and of the later
+// steps, in one fixed order.
+__global__ void __launch_bounds__(NT8)
+mlstm_bwd_dv_scalars_kernel(float* __restrict__ dlf, int S) {
+  __shared__ float tot[NT8 / 32];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* d = dlf + (int64_t)blockIdx.x * S;
+  float carry = 0.f;                    // the same in every thread
+  for (int e = S; e > 0; e -= NT8) {    // rows e - 1 - tid
+    const int t = e - 1 - tid;
+    float x = warp_cumsum(t >= 0 ? d[t] : 0.f);
+    if (lane == 31) tot[warp] = x;
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int s = ty + 16 * i, cc = tx + 16 * j;
-        float acc = 0.f;
-        for (int t = 0; t < L; ++t)
-          acc = fmaf(Ps[t * PAD + s], dnm[t * PAD + cc], acc);
-        if (s < L) dv[(row0 + s) * K + col + cc] = w[s] * adv[i][j] + acc;
-      }
-
-    if (vt == 0) {    // the log gates, from the finished dq and dk
-      const int t = tid / 4, p = tid % 4;
-      float a1 = 0.f, a2 = 0.f;
-      if (t < L)
-        for (int j = p; j < K; j += 4) {
-          const int64_t o = (row0 + t) * K + j;
-          a1 = fmaf(to_f(q[o]), dq[o], a1);
-          a2 = fmaf(to_f(k[o]), dk[o], a2);
-        }
-      part[t * 4 + p] = a1;
-      part2[t * 4 + p] = a2;
-      __syncthreads();
-      if (tid == 0)
-        for (int s = L - 1; s >= 0; --s) {
-          const float qdq = ((part[4 * s] + part[4 * s + 1]) +
-                             part[4 * s + 2]) + part[4 * s + 3];
-          const float kdk = ((part2[4 * s] + part2[4 * s + 1]) +
-                             part2[4 * s + 2]) + part2[4 * s + 3];
-          dli[row0 + s] = kdk;
-          carry += qdq - kdk;
-          dlf[row0 + s] = carry;
-        }
+    for (int v = 0; v < NT8 / 32; ++v) {
+      if (v == warp) x += carry;
+      carry += tot[v];
     }
+    if (t >= 0) d[t] = x;
+    __syncthreads();
   }
 }
 
@@ -1081,9 +1039,8 @@ constexpr size_t out_smem() {
 constexpr size_t grad_smem() {
   return sizeof(float) * (2 * GR_STAGE + TILE * LDP + 7 * TILE);
 }
-size_t dv_smem(int K) {
-  return sizeof(float) *
-         ((size_t)K * TILE + 4 * LMAX * PAD + 15 * LMAX + 4);
+constexpr size_t dv_smem() {
+  return sizeof(float) * (2 * ST_STAGE + TILE * LDT + 5 * TILE);
 }
 
 template <typename Kern>
@@ -1145,18 +1102,18 @@ int bwd_dqdk(const void* q, const void* k, const void* v, const void* li,
 }
 
 template <typename T>
-int bwd_dv(const void* q, const void* k, const void* li, const void* lf,
-           const void* h, const void* dh, const void* mst,
-           const void* mloc, const void* den, const void* dq,
-           const void* dk, void* dv, void* dli, void* dlf, int BH, int S,
-           int K, int L, float scale, cudaStream_t st) {
-  const size_t smem = dv_smem(K);
-  if (int rc = set_smem(mlstm_bwd_dv_kernel<T>, smem)) return rc;
-  mlstm_bwd_dv_kernel<T><<<dim3(K / TILE, BH), NT, smem, st>>>(
-      (const T*)q, (const T*)k, (const float*)li, (const float*)lf,
-      (const T*)h, (const T*)dh, (const float*)mst, (const float*)mloc,
-      (const float*)den, (const float*)dq, (const float*)dk, (float*)dv,
-      (float*)dli, (float*)dlf, S, K, L, scale);
+int bwd_dv(const void* q, const void* k, const void* li, const void* dh,
+           const void* mloc, const void* dCw, const void* ws,
+           const void* dq, const void* dk, void* dv, void* dli, void* dlf,
+           int BH, int S, int K, int L, float scale, cudaStream_t st) {
+  if (int rc = set_smem(mlstm_bwd_dv_grad_kernel<T>, dv_smem())) return rc;
+  mlstm_bwd_dv_grad_kernel<T><<<dim3(S / L, BH), NT4, dv_smem(), st>>>(
+      (const T*)q, (const T*)k, (const T*)dh, (const float*)li,
+      (const float*)mloc, (const float*)dCw, (const float*)ws,
+      (const float*)dq, (const float*)dk, (float*)dv, (float*)dli,
+      (float*)dlf, BH, S, K, L, scale);
+  if (int rc = (int)cudaGetLastError()) return rc;
+  mlstm_bwd_dv_scalars_kernel<<<BH, NT8, 0, st>>>((float*)dlf, S);
   return (int)cudaGetLastError();
 }
 
@@ -1184,7 +1141,7 @@ extern "C" {
 // Each returns cudaGetLastError() after its launches (0 = launched), or
 // 100000 for a shape, dtype (0 = float32, 1 = bfloat16 for q, k, v, h and
 // dh) or pointer the kernels do not take. ws is a workspace of 8 * bh * s
-// f32 for mlstm_fwd and mlstm_bwd_dqdk.
+// f32 for mlstm_fwd and mlstm_bwd_dqdk; mlstm_bwd_dv reads the latter's.
 // mlstm_fwd writes h and every aux array (C, n, m states, m_loc, den).
 int mlstm_fwd(const void* q, const void* k, const void* v, const void* li,
               const void* lf, void* h, void* Cst, void* nst, void* mst,
@@ -1226,19 +1183,24 @@ int mlstm_bwd_dqdk(const void* q, const void* k, const void* v,
                                  chunk, scale, st);
 }
 
+// mlstm_bwd_dv writes dv, dlog_i and dlog_f from what mlstm_bwd_dqdk
+// wrote: dq, dk, the state's gradient dC at each chunk's end and its
+// workspace ws (F, w and the denominator of each row).
 int mlstm_bwd_dv(const void* q, const void* k, const void* li,
-                 const void* lf, const void* h, const void* dh,
-                 const void* mst, const void* mloc, const void* den,
-                 const void* dq, const void* dk, void* dv, void* dli,
-                 void* dlf, int bh, int s, int kd, int chunk, int dtype,
-                 float scale, void* stream) {
-  if (!shape_ok(bh, s, kd, chunk, dtype)) return kUnsupported;
+                 const void* dh, const void* mloc, const void* dC,
+                 const void* ws, const void* dq, const void* dk, void* dv,
+                 void* dli, void* dlf, int bh, int s, int kd, int chunk,
+                 int dtype, float scale, void* stream) {
+  if (!shape_ok(bh, s, kd, chunk, dtype) ||
+      !ptrs_ok({q, k, li, dh, mloc, dC, ws, dq, dk, dv, dli, dlf},
+               {q, k, dh, dC, dq, dk, dv}))
+    return kUnsupported;
   auto st = (cudaStream_t)stream;
   if (dtype == 0)
-    return bwd_dv<float>(q, k, li, lf, h, dh, mst, mloc, den, dq, dk, dv,
-                         dli, dlf, bh, s, kd, chunk, scale, st);
-  return bwd_dv<__nv_bfloat16>(q, k, li, lf, h, dh, mst, mloc, den, dq, dk,
-                               dv, dli, dlf, bh, s, kd, chunk, scale, st);
+    return bwd_dv<float>(q, k, li, dh, mloc, dC, ws, dq, dk, dv, dli, dlf,
+                         bh, s, kd, chunk, scale, st);
+  return bwd_dv<__nv_bfloat16>(q, k, li, dh, mloc, dC, ws, dq, dk, dv, dli,
+                               dlf, bh, s, kd, chunk, scale, st);
 }
 
 }  // extern "C"

@@ -12,13 +12,16 @@ dq and dk). A CUDA tensor launches the kernels (or raises); only a CPU
 tensor runs the plain versions, so the CPU tests exercise the same
 wiring.
 
-`mlstm_fwd` and `mlstm_bwd_dqdk` each run as passes: only the state
-recurrence walks the chunks in order (the forward's C and n, the
-backward's dC and dn), and everything else runs every chunk at once
-from the states stored per chunk. The plain versions of those passes
+Each kernel runs as passes: only the state recurrence walks the chunks
+in order (the forward's C and n, the backward's dC and dn), and
+everything else runs every chunk at once from the states stored per
+chunk. `mlstm_bwd_dqdk` stores dC at each chunk's end in a workspace,
+which `mlstm_bwd_dv` reads: dv = w_s (k dC) + (A * q k^T)^T dnum, a chunk
+at a time in parallel, then dlog_f's reverse cumulative sum over the
+sequence in a small pass. The plain versions of those passes
 (`mlstm_fwd_states_ref`, `mlstm_fwd_out_ref`, `mlstm_bwd_dC_ref`,
-`mlstm_bwd_dqdk_ref`) hold that algebra against the one-pass plain
-versions in the tests.
+`mlstm_bwd_dqdk_ref`, `mlstm_bwd_dv_ref`) hold that algebra against the
+one-pass plain versions in the tests.
 
 The backward treats every stabilizer as a constant. With num = e^-M
 num_raw and den = e^-M den_raw for a row's stabilizer M, the output
@@ -296,6 +299,23 @@ def mlstm_bwd_dqdk_ref(q, k, v, log_i, log_f, h, dh, aux, dC, dn,
     return dq.reshape(bh, s, kd), dk.reshape(bh, s, kd)
 
 
+def mlstm_bwd_dv_ref(q, k, log_i, log_f, h, dh, aux, dC, dq, dk,
+                     chunk: int):
+    """dv (BH, S, K), dlog_i and dlog_f (BH, S), all f32, every chunk at
+    once from the reverse pass's dC at each chunk's end and the finished
+    dq, dk; dlog_f is the reverse cumulative sum of q.dq - k.dk over the
+    whole sequence."""
+    bh, s, kd = q.shape
+    A, _, w_s, denom, _, _ = _bwd_rows(log_i, log_f, h, dh, aux, chunk)
+    qc, kc, dhc = _per_chunk(q, k, dh, chunk=chunk)
+    P = A * ((qc @ kc.transpose(-1, -2)) * kd ** -0.5)
+    dv = w_s[..., None] * (kc @ dC) + \
+        P.transpose(-1, -2) @ (dhc / denom[..., None])
+    dli = (k.float() * dk).sum(-1)
+    dF = (q.float() * dq).sum(-1) - dli
+    return dv.reshape(bh, s, kd), dli, dF.flip(-1).cumsum(-1).flip(-1)
+
+
 # -------------------------------------------------------------- wrappers
 def _ptrs(*ts):
     return [t.data_ptr() for t in ts]
@@ -354,7 +374,7 @@ def _launch_dqdk(q, k, v, li, lf, h, dh, aux, chunk: int):
     launch("mlstm_bwd_dqdk", *_ptrs(q, k, v, li, lf, h, dh, *aux, dq, dk,
                                     dC, dn, ws),
            bh, s, kd, chunk, _DTYPE_CODE[q.dtype], kd ** -0.5, device=dev)
-    return dq, dk, dC, dn
+    return dq, dk, dC, dn, ws
 
 
 def mlstm_bwd_dqdk(q, k, v, log_i, log_f, h, dh, aux, chunk: int):
@@ -372,7 +392,50 @@ def mlstm_bwd_dqdk(q, k, v, log_i, log_f, h, dh, aux, chunk: int):
     q, k, v, h, dh = (_aligned(t) for t in (q, k, v, h, dh))
     li, lf = log_i.float().contiguous(), log_f.float().contiguous()
     return _launch_dqdk(q, k, v, li, lf, h, dh,
-                        tuple(_aligned(t) for t in aux), chunk)
+                        tuple(_aligned(t) for t in aux), chunk)[:4]
+
+
+def _launch_dv(q, k, li, dh, m_loc, dC, ws, dq, dk, chunk: int):
+    bh, s, kd = q.shape
+    dev = q.device
+    dv = _f32(bh, s, kd, device=dev)
+    dli, dlf = _f32(bh, s, device=dev), _f32(bh, s, device=dev)
+    launch("mlstm_bwd_dv", *_ptrs(q, k, li, dh, m_loc, dC, ws, dq, dk, dv,
+                                  dli, dlf),
+           bh, s, kd, chunk, _DTYPE_CODE[q.dtype], kd ** -0.5, device=dev)
+    return dv, dli, dlf
+
+
+def mlstm_bwd_dv(q, k, log_i, log_f, h, dh, aux, dC, dq, dk, chunk: int,
+                 ws=None):
+    """(dv, dlog_i, dlog_f), all f32, from what `mlstm_bwd_dqdk` gives:
+    dC (BH, nc, K, K) and the finished dq, dk (BH, S, K) f32. The
+    `mlstm_bwd_dv` kernel for CUDA tensors, which also reads ws, the (8,
+    BH, S) workspace the `mlstm_bwd_dqdk` kernel wrote beside dC (each
+    row's F, w and denominator); the plain pass for CPU tensors."""
+    _check_bwd(q, k, k, log_i, log_f, h, dh, chunk)     # no v here
+    bh, s, kd = q.shape
+    want = {"dC": (dC, (bh, s // chunk, kd, kd)), "dq": (dq, (bh, s, kd)),
+            "dk": (dk, (bh, s, kd))}
+    if q.device.type != "cpu":
+        if ws is None:
+            raise ValueError("the mlstm_bwd_dv kernel reads the workspace "
+                             "ws of the mlstm_bwd_dqdk kernel")
+        want["ws"] = (ws, (WS_ROWS, bh, s))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or \
+                t.device != q.device:
+            raise ValueError(f"{name} must be {shape} float32 on "
+                             f"{q.device}; got {tuple(t.shape)} {t.dtype} "
+                             f"{t.device}")
+    dh = dh.to(h.dtype)
+    if q.device.type == "cpu":
+        return mlstm_bwd_dv_ref(q, k, log_i, log_f, h, dh, aux, dC, dq, dk,
+                                chunk)
+    return _launch_dv(*(_aligned(t) for t in (q, k)),
+                      log_i.float().contiguous(),
+                      *(_aligned(t) for t in (dh, aux[3], dC, ws, dq, dk)),
+                      chunk)
 
 
 def mlstm_bwd(q, k, v, log_i, log_f, h, dh, aux, chunk: int):
@@ -387,16 +450,10 @@ def mlstm_bwd(q, k, v, log_i, log_f, h, dh, aux, chunk: int):
     q, k, v, h, dh = (_aligned(t) for t in (q, k, v, h, dh))
     li, lf = log_i.float().contiguous(), log_f.float().contiguous()
     aux = tuple(_aligned(t) for t in aux)
-    bh, s, kd = q.shape
-    dq, dk, _, _ = _launch_dqdk(q, k, v, li, lf, h, dh, aux, chunk)
-    dv = _f32(bh, s, kd, device=q.device)
-    dli, dlf = _f32(bh, s, device=q.device), _f32(bh, s, device=q.device)
-    _, _, m_st, m_loc, den = aux
-    launch("mlstm_bwd_dv", *_ptrs(q, k, li, lf, h, dh, m_st, m_loc, den, dq,
-                                  dk, dv, dli, dlf),
-           bh, s, kd, chunk, _DTYPE_CODE[q.dtype], kd ** -0.5,
-           device=q.device)
-    return dq, dk, dv, dli, dlf
+    # dC (537 MB at the xLSTM path) lives until the dv launch is queued
+    dq, dk, dC, _, ws = _launch_dqdk(q, k, v, li, lf, h, dh, aux, chunk)
+    return (dq, dk, *_launch_dv(q, k, li, dh, aux[3], dC, ws, dq, dk,
+                                chunk))
 
 
 class MLSTMChunkwise(torch.autograd.Function):

@@ -171,6 +171,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ml.mlstm_fwd(q, q.bfloat16(), q, g, g, 16)
     with pytest.raises(ValueError, match="log gates"):
         ml.mlstm_fwd(q, q, q, g[:, :32], g, 16)
+    h, aux = ml.mlstm_fwd(q, q, q, g, g, 16)
+    dC = torch.zeros(2, 4, 64, 64)
+    with pytest.raises(ValueError, match="dC must be"):
+        ml.mlstm_bwd_dv(q, q, g, g, h, q, aux, dC[:, :3], q, q, 16)
+    with pytest.raises(ValueError, match="dq must be"):
+        ml.mlstm_bwd_dv(q, q, g, g, h, q, aux, dC, q.bfloat16(), q, 16)
+    with pytest.raises(ValueError, match="divide"):
+        ml.mlstm_bwd_dv(q, q, g, g, h, q, aux, dC, q, q, 24)
 
 
 def test_cpu_tensors_never_count_kernel_launches():
@@ -178,6 +186,10 @@ def test_cpu_tensors_never_count_kernel_launches():
     ins = [torch.from_numpy(a).requires_grad_(True)
            for a in _inputs(41, 1, 32, 64)]
     ops.mlstm_chunkwise(*ins, chunk=16).sum().backward()
+    t = [x.detach() for x in ins]
+    h, aux = ml.mlstm_fwd(*t, 16)
+    dq, dk, dC, _ = ml.mlstm_bwd_dqdk(*t, h, h, aux, 16)
+    ml.mlstm_bwd_dv(t[0], t[1], t[3], t[4], h, h, aux, dC, dq, dk, 16)
     assert ml.LAUNCHES == {"mlstm_fwd": 0, "mlstm_bwd_dqdk": 0,
                            "mlstm_bwd_dv": 0}
 
@@ -199,8 +211,9 @@ def _vjp_at(q, k, v, li, lf, dh, chunk):
 @functools.lru_cache(maxsize=None)
 def _pass_case(kd, chunk, s, dtype):
     """Seeded inputs (q, k, v, dh rounded to `dtype`) and the JAX
-    package's h (Pallas, interpret mode) and dq, dk (jax.vjp of the
-    model-level function) on them, computed once per case."""
+    package's h (Pallas, interpret mode) and dq, dk, dv, dlog_i, dlog_f
+    (jax.vjp of the model-level function) on them, computed once per
+    case."""
     ins = _inputs(kd + chunk, 2, s, kd, scale=1.0, li_sd=1.0, li_mean=1.0)
     dh = _x(kd + 7, 2, s, kd)
     t = [torch.from_numpy(a) for a in ins]
@@ -208,14 +221,14 @@ def _pass_case(kd, chunk, s, dtype):
     dht = torch.from_numpy(dh).to(dtype)
     j = [jnp.asarray(x.float().numpy()) for x in t]
     pallas = jops.mlstm_chunkwise(*j, chunk=chunk, interpret=True)
-    dq, dk = _vjp_at(*j, jnp.asarray(dht.float().numpy()), chunk=chunk)[:2]
-    return t, dht, np.asarray(pallas), np.asarray(dq), np.asarray(dk)
+    grads = _vjp_at(*j, jnp.asarray(dht.float().numpy()), chunk=chunk)
+    return t, dht, np.asarray(pallas), tuple(np.asarray(g) for g in grads)
 
 
 @pytest.mark.parametrize("kd,chunk,s,dtype", PASS_CASES)
 def test_forward_passes_match_pallas_and_the_one_pass_forward(kd, chunk, s,
                                                               dtype):
-    t, _, pallas, _, _ = _pass_case(kd, chunk, s, dtype)
+    t, _, pallas, _ = _pass_case(kd, chunk, s, dtype)
     C, n, m = ml.mlstm_fwd_states_ref(t[1], t[2], t[3], t[4], chunk)
     h, m_loc, den = ml.mlstm_fwd_out_ref(*t, C, n, m, chunk)
     assert h.dtype == dtype and h.shape == (2, s, kd)
@@ -234,7 +247,7 @@ def test_forward_passes_match_pallas_and_the_one_pass_forward(kd, chunk, s,
 @pytest.mark.parametrize("kd,chunk,s,dtype", PASS_CASES)
 def test_backward_passes_match_jax_vjp_and_the_one_pass_backward(kd, chunk,
                                                                  s, dtype):
-    t, dh, _, jdq, jdk = _pass_case(kd, chunk, s, dtype)
+    t, dh, _, (jdq, jdk, *_) = _pass_case(kd, chunk, s, dtype)
     h, aux = ml.mlstm_fwd_ref(*t, chunk)
     dC, dn = ml.mlstm_bwd_dC_ref(t[0], t[3], t[4], h, dh, aux, chunk)
     nc = s // chunk
@@ -251,4 +264,26 @@ def test_backward_passes_match_jax_vjp_and_the_one_pass_backward(kd, chunk,
     # the dq/dk wrapper on CPU tensors runs these passes
     got = ml.mlstm_bwd_dqdk(*t, h, dh, aux, chunk)
     for g, w in zip(got, (dq, dk, dC, dn)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kd,chunk,s,dtype", PASS_CASES)
+def test_dv_pass_matches_jax_vjp_and_the_one_pass_backward(kd, chunk, s,
+                                                           dtype):
+    t, dh, _, jgrads = _pass_case(kd, chunk, s, dtype)
+    h, aux = ml.mlstm_fwd_ref(*t, chunk)
+    dC, dn = ml.mlstm_bwd_dC_ref(t[0], t[3], t[4], h, dh, aux, chunk)
+    dq, dk = ml.mlstm_bwd_dqdk_ref(*t, h, dh, aux, dC, dn, chunk)
+    args = (t[0], t[1], t[3], t[4], h, dh, aux, dC, dq, dk, chunk)
+    got = ml.mlstm_bwd_dv_ref(*args)
+    # dv is independent of h; dlog_i and dlog_f carry dq's and dk's error
+    tol = GRAD_TOL if dtype == torch.float32 else BF16_TOL
+    want = ml.mlstm_bwd_ref(*t, h, dh, aux, chunk)
+    for name, g, jw, w in zip(("dv", "dlog_i", "dlog_f"), got, jgrads[2:],
+                              want[2:]):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert _rel(g, jw) <= tol, name
+        assert _rel(g, w.numpy()) <= GRAD_TOL, name
+    # the dv wrapper on CPU tensors runs this pass
+    for g, w in zip(ml.mlstm_bwd_dv(*args), got):
         assert torch.equal(g, w)
