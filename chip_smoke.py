@@ -11,7 +11,8 @@ Phases (each failure exits non-zero):
      walks, output, dq/dk and dv passes) must issue tensor-core
      instructions (HMMA in its SASS), no instance of those three
      libraries may spill, and no other kernel may be in them (the
-     mLSTM's scalar passes have no HMMA);
+     mLSTM's scalar passes have no HMMA); no instance of the RG-LRU
+     scan's passes may spill either;
   2. kernels: every CUDA kernel of the main paths against its plain
      PyTorch version on the card (tolerances below; the kernels' outputs
      are allocated filled with NaN, so one left unwritten fails),
@@ -25,7 +26,13 @@ Phases (each failure exits non-zero):
      scan and the chunkwise mLSTM); the mLSTM's dq/dk kernel's dC
      workspace against its plain reverse pass, the dv kernel on that
      workspace against its plain pass on the same dC, dq and dk, and
-     the device time of each pass of the three mLSTM kernels;
+     the device time of each pass of the three mLSTM kernels; the
+     RG-LRU scan also at chunk edges of the chunk length its wrapper
+     picks (S a multiple of it, S one step past it, ragged S with B > 1
+     and a D no multiple of the 4 lanes a thread takes where it can),
+     its workspace (each
+     chunk's product and carry) against its plain passes, and the
+     device time of each of its passes;
   3. reference: the engine on the card against the same engine on the
      CPU (plain versions) at the campaign's tiny GPT and at the reduced
      Qwen1.5-MoE config, and make_train_step on the card against the
@@ -48,6 +55,8 @@ Phases (each failure exits non-zero):
      2560, 10 x 256 heads on one kv head, window 2048, d_ff 7680, vocab
      256000, tied embedding) for 3 steps at global batch 1, seq 4096,
      with RunCfg's defaults (bf16 parameters, remat, grad_accum 1);
+     the profiled step must show device time in the RG-LRU scan's
+     kernels;
   7. slice, xLSTM: the launcher trains xLSTM-350M at full width and
      depth (24 layers: 12 x (mlstm, slstm); d_model 1024, 4 heads of
      512 in the mLSTM, vocab 50304, untied head) for XL_STEPS steps at
@@ -108,6 +117,10 @@ GMM_F32_TOL, GMM_BF16_TOL = 1e-4, 2e-2
 # each step's multiply-add, the plain version rounds twice; bf16 outputs
 # round to 8 bits)
 SCAN_F32_TOL, SCAN_BF16_TOL = 1e-5, 2e-2
+# the scan kernels' medians in their first design (a thread per (b, d)
+# lane walking all of S) at RG_SCAN on an NVIDIA H100 80GB HBM3 at
+# 700 W, printed beside this run's
+RGLRU_FIRST_MS = {"rglru_fwd": 0.5789, "rglru_bwd": 0.6186}
 # make_train_step, card against CPU at the reduced RecurrentGemma and
 # xLSTM: losses and grad norms (f32; sums in other orders over two
 # steps)
@@ -160,6 +173,10 @@ XL_MLSTM = dict(bh=16, s=XL_SEQ, k=512, chunk=64, dtype=torch.float32)
 FLASH = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 GMM = ("gmm_fwd", "gmm_bwd_dx", "gmm_bwd_dw")
 SCAN = ("rglru_fwd", "rglru_bwd")
+# the scan library's kernels: the passes of both exports
+SCAN_PASSES = ("rglru_fwd_reduce_kernel", "rglru_fwd_out_kernel",
+               "rglru_bwd_reduce_kernel", "rglru_bwd_out_kernel",
+               "rglru_carry_kernel")
 MLSTM = ("mlstm_fwd", "mlstm_bwd_dqdk", "mlstm_bwd_dv")
 # the mLSTM library's kernels, with and without tensor-core products
 MLSTM_TC = ("mlstm_fwd_state_kernel", "mlstm_fwd_out_kernel",
@@ -616,10 +633,23 @@ def scan_work(name, b, s, d, a_dtype, x_dtype):
     return 3 * n, n * (2 * el(a_dtype) + 3 * el(x_dtype))
 
 
+# the chunk edges check_rglru adds, at the chunk length L the wrapper
+# picks: whether (b, s, d, L) is the case it stands for
+SCAN_EDGES = {
+    "S a multiple of L": lambda b, s, d, L: s % L == 0 and s > L,
+    "S = L + 1": lambda b, s, d, L: s == L + 1,
+    # one lane a thread (the kernels take 4 where D is a multiple of 4),
+    # the last block's lanes masked, and a short last chunk
+    "B > 1, D no multiple of 4, ragged S":
+        lambda b, s, d, L: b > 1 and d % 4 != 0 and s % L != 0}
+
+
 def check_rglru(rg):
     """Both scan kernels against their plain versions at the
-    RecurrentGemma path's shape and at ragged small shapes; returns the
-    path-shape results by kernel name."""
+    RecurrentGemma path's shape, at ragged small shapes and at the edges
+    of the chunk length rg.chunk_len picks (SCAN_EDGES); the workspace
+    each leaves (each chunk's product and carry) against the plain
+    passes. Returns the path-shape results by kernel name."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [dict(RG_SCAN),
              dict(RG_SCAN, a_dtype=bf16, x_dtype=bf16),
@@ -627,12 +657,26 @@ def check_rglru(rg):
              dict(b=2, s=130, d=65, a_dtype=f32, x_dtype=f32),
              dict(b=3, s=37, d=50, a_dtype=bf16, x_dtype=bf16),
              dict(b=2, s=130, d=65, a_dtype=f32, x_dtype=bf16),
-             dict(b=2, s=130, d=65, a_dtype=bf16, x_dtype=f32)]
+             dict(b=2, s=130, d=65, a_dtype=bf16, x_dtype=f32),
+             dict(b=2, s=256, d=96, a_dtype=f32, x_dtype=f32,
+                  edge="S a multiple of L"),
+             dict(b=2, s=17, d=96, a_dtype=bf16, x_dtype=f32,
+                  edge="S = L + 1"),
+             dict(b=4, s=1000, d=2570, a_dtype=f32, x_dtype=f32,
+                  edge="B > 1, D no multiple of 4, ragged S"),
+             dict(b=3, s=300, d=130, a_dtype=f32, x_dtype=bf16,
+                  edge="B > 1, D no multiple of 4, ragged S")]
     gen = torch.Generator(device="cuda").manual_seed(2468)
     results = {}
+    rel = lambda g, w: ((g.float() - w.float()).abs().max()
+                        / w.float().abs().max().clamp(min=1e-30)).item()
     for c in cases:
         b, s, d, adt, xdt = (c[k] for k in ("b", "s", "d", "a_dtype",
                                             "x_dtype"))
+        L = rg.chunk_len(b, s, d)
+        if "edge" in c and not SCAN_EDGES[c["edge"]](b, s, d, L):
+            raise SystemExit(f"B={b} S={s} D={d} at chunk {L} is not the "
+                             f"case {c['edge']!r}")
         # the model's decays: a in [0.9, 1), long memories
         a = (0.9 + 0.1 * torch.rand(b, s, d, device="cuda",
                                     generator=gen)).to(adt)
@@ -658,15 +702,27 @@ def check_rglru(rg):
                                      f"against {tuple(w.shape)} {w.dtype}")
             errs[n] = max((gt.float() - w.float()).abs().max().item()
                           for gt, w in zip(got[n], want[n]))
-            rels[n] = max(((gt.float() - w.float()).abs().max()
-                           / w.float().abs().max().clamp(min=1e-30)).item()
-                          for gt, w in zip(got[n], want[n]))
+            rels[n] = max(rel(gt, w) for gt, w in zip(got[n], want[n]))
+        # the workspaces: products and carries against the plain passes
+        with unwritten_is_nan():
+            ws_f = rg._launch_fwd(a, x, L)[1]
+            ws_b = rg._launch_bwd(a, h, g, L)[2]
+        torch.cuda.synchronize()
+        A, X = rg.rglru_fwd_reduce_ref(a, x, L)
+        P, G = rg.rglru_bwd_reduce_ref(a, g, L)
+        ws_rel = max(rel(gt, w) for gt, w in (
+            (ws_f[0], A), (ws_f[1], rg.rglru_carry_ref(A, X)),
+            (ws_b[0], P), (ws_b[1], rg.rglru_carry_ref(P, G, reverse=True))))
+        del ws_f, ws_b, A, X, P, G
         tol = SCAN_F32_TOL if bf16 not in (adt, xdt) else SCAN_BF16_TOL
-        label = f"B={b} S={s} D={d} a {str(adt)[6:]} x {str(xdt)[6:]}"
+        label = (f"B={b} S={s} D={d} a {str(adt)[6:]} x {str(xdt)[6:]}, "
+                 f"chunk {L}" + (f" ({c['edge']})" if "edge" in c else ""))
         print(f"  {label}: " + ", ".join(
             f"{n} err {errs[n]:.3e} (rel {rels[n]:.2e}, tol {tol:g})"
-            for n in SCAN) + f", bitwise repeat {repeat}", flush=True)
-        if not repeat or not all(rels[n] <= tol for n in SCAN):
+            for n in SCAN) + f", workspace rel {ws_rel:.2e}, bitwise "
+            f"repeat {repeat}", flush=True)
+        if not repeat or ws_rel > tol or \
+                not all(rels[n] <= tol for n in SCAN):
             raise SystemExit(f"RG-LRU scan check failed at {label}")
         if c == RG_SCAN:
             results = {n: {"max_abs_err": errs[n]} for n in SCAN}
@@ -680,6 +736,26 @@ def time_rglru(rg, results, shape, a, x, h, g):
                            lambda: rg.rglru_fwd_ref(a, x)),
              "rglru_bwd": (lambda: rg.rglru_bwd(a, h, g),
                            lambda: rg.rglru_bwd_ref(a, h, g))}
+    # device time of each pass: the median over five calls of each
+    # kernel in one profiler run
+    from torch.profiler import ProfilerActivity, profile
+    for name, (kern, _) in calls.items():
+        kern()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                kern()
+            torch.cuda.synchronize()
+        passes = {}
+        for n, us in device_kernels(prof):
+            if "rglru" in n:
+                passes.setdefault(re.search(r"rglru_\w+?_kernel", n)
+                                  .group(0), []).append(us)
+        print(f"  {name} passes (device ms, median of the calls "
+              f"recorded): " + (", ".join(
+                  f"{n} {statistics.median(us) / 1e3:.4f} ({len(us)})"
+                  for n, us in passes.items()) or "not measured"),
+              flush=True)
     for name, (kern, plain) in calls.items():
         r = results[name]
         r["ms"] = time_ms(kern, 20)
@@ -688,10 +764,14 @@ def time_rglru(rg, results, shape, a, x, h, g):
         r["library_ms"] = None
         work = scan_work(name, **shape)
         r["bound_ms"], r["bound_by"] = bound(*work, shape["a_dtype"])
-        print(f"  {name} at B={shape['b']} S={shape['s']} D={shape['d']}: "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"none, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
-              f"{work[1] / r['ms'] / 1e9:.1f} GB/s", flush=True)
+        first = RGLRU_FIRST_MS[name]
+        print(f"  {name} at B={shape['b']} S={shape['s']} D={shape['d']}, "
+              f"chunk {rg.chunk_len(shape['b'], shape['s'], shape['d'])}: "
+              f"{r['ms']:.4f} ms (first design {first:.4f} ms, "
+              f"{first / r['ms']:.2f}x), plain {r['plain_ms']:.4f} ms, "
+              f"library none, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); {work[1] / r['ms'] / 1e9:.2f} TB/s",
+              flush=True)
 
 
 def mlstm_work(name, bh, s, k, chunk, dtype):
@@ -876,12 +956,15 @@ def time_mlstm(ml, results, shape, ins, h, dh, aux):
               flush=True)
 
 
+# a kernel's name, then its template arguments: types (f32, bf16, or a
+# substitution S<n>_, which in these kernels' argument lists only ever
+# repeats __nv_bfloat16: float is never substituted) and ints or bools
 KERNEL_RE = re.compile(r"((?:rglru_|mlstm_)?(?:fwd|bwd)"
                        r"(?:_dkdv|_dqdk|_dq|_dv)?"
-                       r"(?:_scalars|_state|_out|_grad)?_kernel"
-                       r"|gmm(?:_mma)?_kernel)"
-                       r"(?:I((?:f|13__nv_bfloat16)+)((?:L[ib]\d+E)*)E"
-                       r"|(?=E))")
+                       r"(?:_scalars|_state|_out|_grad|_reduce)?_kernel"
+                       r"|rglru_carry_kernel|gmm(?:_mma)?_kernel)"
+                       r"(?:I((?:f|13__nv_bfloat16|S\d*_)+)"
+                       r"((?:L[ib]\d+E)*)E|(?=E))")
 
 
 def instance_name(mangled: str):
@@ -891,7 +974,7 @@ def instance_name(mangled: str):
     if not m:
         return None
     dts = ["f32" if t == "f" else "bf16" for t in
-           re.findall(r"f|13__nv_bfloat16", m.group(2) or "")]
+           re.findall(r"f|13__nv_bfloat16|S\d*_", m.group(2) or "")]
     args = re.findall(r"L[ib](\d+)E", m.group(3) or "")
     return f"{m.group(1)}<{', '.join(dts + args)}>"
 
@@ -957,7 +1040,8 @@ def tensor_core_instances(libs, lib: str, kernels, want: int,
 # device-time groups of a step's breakdown, matched in this order
 GROUPS = (("mLSTM kernels",
            r"mlstm_(fwd|bwd_dqdk|bwd_dv)(_scalars|_state|_out|_grad)?_kernel"),
-          ("RG-LRU scan kernels", r"rglru_(fwd|bwd)_kernel"),
+          ("RG-LRU scan kernels",
+           r"rglru_(fwd_reduce|fwd_out|bwd_reduce|bwd_out|carry)_kernel"),
           ("attention kernels", r"\bfwd_kernel|bwd_dkdv_kernel|"
                                 r"bwd_dq_kernel"),
           ("grouped matmul kernels", r"gmm_mma_kernel"),
@@ -993,7 +1077,8 @@ def breakdown(kernels, label: str, wall_us: float, step_s: float):
     tensors), then cuBLAS, then the rest. The idle share is taken
     against `step_s`, the same step's wall time measured without the
     profiler (its host overhead stretches the profiled wall, not the
-    kernels)."""
+    kernels). Returns the device microseconds by group, or None when
+    no device time was recorded."""
     by_name, groups = {}, {g: 0.0 for g, _ in GROUPS}
     groups.update({SMALL: 0.0, OTHER: 0.0})
     cublas = GROUPS[-1]
@@ -1012,7 +1097,7 @@ def breakdown(kernels, label: str, wall_us: float, step_s: float):
     if not busy:
         print("  profiler: no device time recorded; breakdown not "
               "measured", flush=True)
-        return
+        return None
     print(f"  profiled {label}: device busy {busy / 1e3:.1f} ms over "
           f"{len(kernels)} device events; wall {wall_us / 1e3:.1f} ms with "
           f"the profiler on, {step_s * 1e3:.1f} ms without; idle share "
@@ -1021,6 +1106,7 @@ def breakdown(kernels, label: str, wall_us: float, step_s: float):
         print(f"    {g}: {us / 1e3:.1f} ms ({us / busy:.3f} of busy)")
     for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"    {us / 1e3:9.1f} ms  {n[:110]}")
+    return groups
 
 
 def profile_step(eng, step_s: float):
@@ -1382,10 +1468,11 @@ def run_launcher(mods, argv, count: bool):
     return hist, launches, traces
 
 
-def drive_launcher(mods, cfg, argv, label):
+def drive_launcher(mods, cfg, argv, label, busy_groups=()):
     """The launcher twice over `argv` with one seed: counted launches
     against the config's, then the last step of the second run
-    profiled; losses bitwise equal across the runs."""
+    profiled, in which each group of `busy_groups` must show device
+    time; losses bitwise equal across the runs."""
     steps = int(argv[argv.index("--steps") + 1])
     print(f"[slice] {cfg.name}, {cfg.num_layers} layers, {label}",
           flush=True)
@@ -1400,15 +1487,19 @@ def drive_launcher(mods, cfg, argv, label):
     print(f"[slice] {cfg.name}: second run, same seed, last step "
           f"profiled", flush=True)
     again, _, traces = run_launcher(mods, argv, count=False)
+    groups = None
     if traces:
         t0 = time.perf_counter()
-        breakdown(traces[-1], f"train step {steps}",
-                  again[-1]["seconds"] * 1e6, hist[-1]["seconds"])
+        groups = breakdown(traces[-1], f"train step {steps}",
+                           again[-1]["seconds"] * 1e6, hist[-1]["seconds"])
         print(f"  (breakdown read in {time.perf_counter() - t0:.1f} s)",
               flush=True)
     else:
         print("  profiler: no trace recorded; breakdown not measured",
               flush=True)
+    idle = [g for g in busy_groups if not (groups or {}).get(g)]
+    if idle:
+        raise SystemExit(f"no device time in {idle} in the profiled step")
     same = [h["loss"] for h in again] == losses
     print(f"  losses bitwise equal across same-seed runs: {same}",
           flush=True)
@@ -1460,6 +1551,15 @@ def main() -> int:
     tensor_core_instances(libs, "mlstm", MLSTM_TC + MLSTM_NO_TC,
                           6 * len(ml._DTYPE_CODE) + 2,
                           without=MLSTM_NO_TC)
+    # the scan's passes: four per (a, x) dtype pair and lane width (one
+    # or four lanes a thread) and one carry pass, none spilling
+    scan = ptxas_summary(libs.log.get("rglru_scan", ""))
+    spilled = [n for n, sp, _ in scan if sp]
+    others = [n for n, _, _ in scan if n.split("<")[0] not in SCAN_PASSES]
+    if len(scan) != 4 * 2 * len(rg._DTYPE_CODE) ** 2 + 1 or spilled or \
+            others:
+        raise SystemExit(f"rglru_scan: instances {[n for n, _, _ in scan]}, "
+                         f"spilling {spilled}, others {others}")
 
     print("[kernels] against the plain versions", flush=True)
     results = check_kernels(fa)
@@ -1496,7 +1596,8 @@ def main() -> int:
     rg_launches = drive_launcher(mods, rgc, [
         "--arch", rgc.name, "--steps", "3", "--batch", "1", "--seq",
         "4096", "--log-every", "1", "--device", "cuda"],
-        "batch 1 seq 4096, launcher defaults (bf16 params, remat)")
+        "batch 1 seq 4096, launcher defaults (bf16 params, remat)",
+        busy_groups=("RG-LRU scan kernels",))
     xl = xlstm_350m.CONFIG
     xl_launches = drive_launcher(mods, xl, [
         "--arch", xl.name, "--steps", str(XL_STEPS), "--batch", "4",

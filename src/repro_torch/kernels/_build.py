@@ -45,10 +45,10 @@ SIGNATURES = {
         "gmm_bwd_dw": [P, P, P, I, I, I, I, I, P],
     },
     "rglru_scan": {
-        # a, x, h, b, s, d, a_dtype, x_dtype, stream
-        "rglru_fwd": [P, P, P, I, I, I, I, I, P],
-        # a, h, g, da, dx, b, s, d, a_dtype, x_dtype, stream
-        "rglru_bwd": [P, P, P, P, P, I, I, I, I, I, P],
+        # a, x, h, ws, b, s, d, chunk, a_dtype, x_dtype, stream
+        "rglru_fwd": [P, P, P, P, I, I, I, I, I, I, P],
+        # a, h, g, da, dx, ws, b, s, d, chunk, a_dtype, x_dtype, stream
+        "rglru_bwd": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     },
     "mlstm": {
         # q, k, v, log_i, log_f, h, C_st, n_st, m_st, m_loc, den, ws, bh,

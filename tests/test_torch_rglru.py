@@ -112,6 +112,88 @@ def test_scan_backward_matches_jax_vjp(b, s, d):
     assert torch.equal(ta.grad, da) and torch.equal(tx.grad, dx)
 
 
+# the kernels' three passes at the chunk edges, chunk length 8: S < L,
+# S = L, S = L + 1 and S = 3L + 2; B 1 and 3; odd D; f32, bf16 and mixed
+CHUNK = 8
+f32, bf16 = "float32", "bfloat16"
+
+
+@pytest.mark.parametrize("b,s,d,adt,xdt", [
+    (1, 5, 7, f32, f32),
+    (3, 8, 5, bf16, bf16),
+    (3, 9, 7, f32, bf16),
+    (1, 9, 7, bf16, f32),
+    (1, 26, 9, bf16, f32),
+    (3, 26, 33, f32, f32),
+])
+def test_scan_passes_match_jax_at_chunk_edges(b, s, d, adt, xdt):
+    a, x = _gates(3 * s + d, b, s, d)
+    g = _x(s + 5, b, s, d)
+    ja, jx = jnp.asarray(a).astype(adt), jnp.asarray(x).astype(xdt)
+    jg = jnp.asarray(g).astype(xdt)
+    ta, tx = torch.from_numpy(a).to(getattr(torch, adt)), \
+        torch.from_numpy(x).to(getattr(torch, xdt))
+    tg = torch.from_numpy(g).to(tx.dtype)
+    tol = SCAN_TOL if adt == xdt == f32 else BF16_TOL
+
+    @_jit
+    def jax_refs(ja, jx, jg):
+        """The Pallas kernel in interpret mode, the oracle and its vjp,
+        compiled as one program."""
+        pallas = jops.rglru_scan(ja, jx, block_s=s, block_d=d,
+                                 interpret=True)
+        oracle, pull = jax.vjp(jref.rglru_scan, ja, jx)
+        return pallas, oracle, pull(jg)
+
+    pallas, oracle, (want_da, want_dx) = jax_refs(ja, jx, jg)
+    h = scan.rglru_fwd_passes_ref(ta, tx, CHUNK)
+    assert h.dtype == tx.dtype and h.shape == (b, s, d)
+    _close(h, pallas, tol)
+    _close(h, oracle, tol)
+    _close(h, scan.rglru_fwd_ref(ta, tx).float(), tol)
+
+    # each chunk's carry is h at the previous chunk's last row
+    A, X = scan.rglru_fwd_reduce_ref(ta, tx, CHUNK)
+    carry = scan.rglru_carry_ref(A, X)
+    nc = -(-s // CHUNK)
+    assert carry.shape == (b, nc, d) and carry.dtype == torch.float32
+    assert not carry[:, 0].any()
+    want = scan.rglru_fwd_ref(ta, tx.float())
+    _close(carry[:, 1:], want[:, CHUNK - 1:(nc - 1) * CHUNK:CHUNK], SCAN_TOL)
+
+    da, dx = scan.rglru_bwd_passes_ref(ta, h, tg, CHUNK)
+    assert da.dtype == ta.dtype and dx.dtype == tx.dtype
+    _close(da, want_da, GRAD_TOL if tol == SCAN_TOL else tol)
+    _close(dx, want_dx, GRAD_TOL if tol == SCAN_TOL else tol)
+    one_da, one_dx = scan.rglru_bwd_ref(ta, h, tg)
+    _close(da, one_da.float(), tol)
+    _close(dx, one_dx.float(), tol)
+
+    # each chunk's backward carry is delta at the next chunk's first row
+    P, G = scan.rglru_bwd_reduce_ref(ta, tg, CHUNK)
+    dcarry = scan.rglru_carry_ref(P, G, reverse=True)
+    assert not dcarry[:, -1].any()
+    delta = scan.rglru_bwd_ref(ta.float(), h.float(), tg.float())[1]
+    _close(dcarry[:, :-1], delta[:, CHUNK:nc * CHUNK:CHUNK], SCAN_TOL)
+
+
+def test_chunk_len_fills_a_wave_at_the_path_shape():
+    # RecurrentGemma-2B's scans: B 1, S 4096, D 2560
+    b, s, d = 1, 4096, 2560
+    L = scan.chunk_len(b, s, d)
+    assert L == scan.chunk_len(b, s, d)
+    assert L & (L - 1) == 0 and scan.MIN_CHUNK <= L <= s
+    assert b * d * -(-s // L) >= scan.WAVE
+    # one step longer would leave the card short of a wave
+    assert b * d * -(-s // (2 * L)) < scan.WAVE
+    # a wider B * D gets longer chunks, up to one chunk a row; a narrow
+    # one the shortest; S shorter than the shortest is one chunk
+    widths = [scan.chunk_len(bb, s, d) for bb in (1, 2, 8, 64, 128, 512)]
+    assert widths == sorted(widths) and widths[-1] == s
+    assert scan.chunk_len(1, s, 8) == scan.MIN_CHUNK
+    assert scan.chunk_len(1, 5, 7) >= 5
+
+
 def test_scan_wrappers_refuse_what_the_kernel_does_not_take():
     a = torch.rand(2, 5, 4)
     with pytest.raises(ValueError, match="shape"):
