@@ -75,7 +75,23 @@ Phases (each failure exits non-zero):
      downtime and overlap lanes (simulated, the cost model), the wall
      seconds the card took (measured), the bytes each state copy moved,
      each checkpoint tick's wall seconds and bytes, and the peak device
-     memory.
+     memory;
+  9. campaign (run right after phase 8): the port's campaign harness
+     (`core/campaign.py`) drives GPT-medium at full width and depth
+     with phase 4's engine arguments (CAMPAIGN_CFG) on the card:
+     `reference_run`, then three scenarios of `reduced_matrix(2, 2)`
+     (CAMPAIGN_SCENARIOS: a mid-iteration abort with rollback and
+     standby promotion, a GPU-granular fault re-sharded through the
+     policy layer, a controller crash inside the switch adopted from
+     the journal), one at a time, each freed before the next. The
+     reference run's losses must equal phase 4's first run's bit for
+     bit, every scenario's `loss_parity` must hold (bitwise against the
+     card's reference run), its ledger fields (CAMPAIGN_KEYS) must equal
+     the sim-exec engine's for the same config, run in this phase
+     without a tensor, and each run must launch every attention kernel.
+     Per run it prints the wall seconds the card took (measured), the
+     seconds of it in checkpoint ticks, the simulated downtime, overlap
+     and train lanes, the peak device memory and the launches.
 Each engine slice runs setup, record_iteration and 3 x train_iteration
 twice with the same seed; the launcher slices run the launcher twice.
 Losses must be bitwise equal across the two runs, and the GPT and MoE
@@ -89,6 +105,7 @@ last lines are a JSON line per kernel result, the card line, and
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -170,6 +187,19 @@ XL_STEPS, XL_SEQ = 2, 2048
 # its mLSTM cells: batch 4 x 4 heads, seq XL_SEQ, head dim 512, chunk
 # 64, f32 q, k, v and log gates
 XL_MLSTM = dict(bh=16, s=XL_SEQ, k=512, chunk=64, dtype=torch.float32)
+# phase 9: the campaign at GPT-medium with phase 4's engine arguments,
+# and the scenarios it drives after the reference run
+CAMPAIGN_CFG = dict(arch="gpt-medium", dp=2, pp=2, global_batch=8,
+                    seq_len=2048, micro_batches=2, warmup_iters=1,
+                    total_iters=3, device_capacity_gb=80)
+CAMPAIGN_SCENARIOS = ("fail-first-pre_reduce", "gpu-reshard-first",
+                      "crash-mid-switchover")
+# the ledger fields of a ScenarioResult that the real and the sim-exec
+# engines must give bit for bit
+CAMPAIGN_KEYS = ("events", "downtime_s", "overlap_s", "train_s",
+                 "migrated_bytes", "delta_fraction", "lost_iterations",
+                 "recovery_path", "steps", "resumes", "ckpt_fallbacks",
+                 "degraded_events", "regrow_events", "loss_parity")
 FLASH = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 GMM = ("gmm_fwd", "gmm_bwd_dx", "gmm_bwd_dw")
 SCAN = ("rglru_fwd", "rglru_bwd")
@@ -1298,6 +1328,30 @@ def migration_expected_launches(cfg, dp: int):
     return want
 
 
+@contextlib.contextmanager
+def timed_ticks(ticks: list):
+    """Every Controller's checkpoint tick (a campaign scenario's too, and
+    the one a crash's restart builds) timed on the host clock between
+    torch.cuda.synchronize() calls: (seconds, bytes held on the host
+    for the training machines after it) appended to `ticks`."""
+    from repro_torch.core.controller import Controller
+    tick = Controller._tick_checkpoints
+
+    def timed(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tick(self)
+        torch.cuda.synchronize()
+        ticks.append((time.perf_counter() - t0, sum(
+            self.imc.bytes_for(m) for m in self.engine.grid.values())))
+
+    Controller._tick_checkpoints = timed
+    try:
+        yield
+    finally:
+        Controller._tick_checkpoints = tick
+
+
 def drive_migration(mods, cfg, dp: int, batch: int, card: str, unbroken):
     """Phase 8: the Controller's bootstrap, an expected migration and
     an unexpected failure of GPT-medium on the card, with phase 4's
@@ -1316,17 +1370,6 @@ def drive_migration(mods, cfg, dp: int, batch: int, card: str, unbroken):
     clock = eng.clock
     ctl = Controller(eng, standby_count=1)
     ticks = []
-    tick = ctl._tick_checkpoints
-
-    def timed_tick():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tick()
-        torch.cuda.synchronize()
-        ticks.append((time.perf_counter() - t0, sum(
-            ctl.imc.bytes_for(m) for m in ctl.engine.grid.values())))
-
-    ctl._tick_checkpoints = timed_tick
     script = [
         ("bootstrap_job", lambda: ctl.bootstrap_job(list(range(dp * 2)))),
         ("train(1)", lambda: ctl.train(1)),
@@ -1340,11 +1383,12 @@ def drive_migration(mods, cfg, dp: int, batch: int, card: str, unbroken):
     for name, fn in script:
         lanes = {ln: clock.lane_total(ln) for ln in ("downtime", "overlap")}
         n_ticks = len(ticks)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with timed_ticks(ticks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         sim = {ln: clock.lane_total(ln) - v for ln, v in lanes.items()}
         tick_s = sum(t for t, _ in ticks[n_ticks:])
         print(f"  {name}: measured {wall:.4f} s wall on the card ({card}), "
@@ -1394,7 +1438,7 @@ def drive_migration(mods, cfg, dp: int, batch: int, card: str, unbroken):
     same = losses == unbroken
     print(f"  losses {losses}, unbroken run's {unbroken}: bitwise equal "
           f"{same}", flush=True)
-    del ctl, eng, tick
+    del ctl, eng
     gc.collect()
     torch.cuda.empty_cache()
     if not same:
@@ -1404,6 +1448,99 @@ def drive_migration(mods, cfg, dp: int, batch: int, card: str, unbroken):
         raise SystemExit(f"migration slice: launches {launches} (want "
                          f"{want})")
     return launches
+
+
+def drive_campaign(mods, card: str, unbroken):
+    """Phase 9: the campaign's reference run and CAMPAIGN_SCENARIOS on
+    the card, each against the sim-exec engine's run of the same
+    config; the reference run's losses must be `unbroken`, phase 4's
+    first run's, bit for bit. Returns the launches summed over the
+    four runs."""
+    from repro_torch.core import campaign
+    cfg = campaign.CampaignCfg(**CAMPAIGN_CFG, device="cuda")
+    sim_cfg = dataclasses.replace(cfg, mode="sim", device=None)
+    by_name = {sc.name: sc for sc in campaign.reduced_matrix(cfg.dp,
+                                                             cfg.pp)}
+    print(f"[slice] {cfg.arch} campaign: reference_run, then "
+          f"{', '.join(CAMPAIGN_SCENARIOS)}", flush=True)
+    t0 = time.perf_counter()
+    sim_ref = campaign.reference_run(sim_cfg)
+    sims = {n: campaign.run_scenario(by_name[n], sim_cfg, sim_ref)
+            for n in CAMPAIGN_SCENARIOS}
+    print(f"  sim-exec engine, same config: {time.perf_counter() - t0:.2f}"
+          f" s on the host, no tensor", flush=True)
+    total = {n: 0 for mod in mods for n in mod.LAUNCHES}
+    runs, failures, ref = [], [], None
+    for name in ("reference_run",) + CAMPAIGN_SCENARIOS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in mods:
+            mod.reset_launches()
+        ticks = []
+        with timed_ticks(ticks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = (campaign.reference_run(cfg) if ref is None else
+                   campaign.run_scenario(by_name[name], cfg, ref))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+        peak = torch.cuda.max_memory_allocated()
+        for n, c in launches.items():
+            total[n] += c
+        tick_s = sum(t for t, _ in ticks)
+        run = {"run": name, "card": card, "measured_wall_s": wall,
+               "measured_tick_s": tick_s, "ticks": [
+                   {"measured_s": t, "bytes": b} for t, b in ticks],
+               "max_memory_allocated": peak, "launches": launches}
+        print(f"  {name}: measured {wall:.4f} s wall on the card ({card}), "
+              f"between torch.cuda.synchronize() calls, of it "
+              f"{tick_s:.4f} s in {len(ticks)} checkpoint tick(s) "
+              f"({', '.join(f'{t:.4f} s' for t, _ in ticks)}; "
+              f"{max((b for _, b in ticks), default=0)} B device to host "
+              f"at most); "
+              f"max_memory_allocated {peak} B", flush=True)
+        if ref is None:
+            ref = out
+            steps = sorted(ref)
+            same = [ref[k] for k in steps[:len(unbroken)]] == \
+                unbroken[:len(steps)]
+            run["losses"] = [ref[k] for k in steps]
+            print(f"    losses {run['losses']}, phase 4's first run's "
+                  f"{unbroken}: bitwise equal {same}", flush=True)
+            if not same or steps != list(range(1 + cfg.total_iters)):
+                failures.append(f"reference_run losses {ref}")
+        else:
+            got = {k: getattr(out, k) for k in CAMPAIGN_KEYS}
+            want = {k: getattr(sims[name], k) for k in CAMPAIGN_KEYS}
+            run["result"] = out.to_dict()
+            print(f"    simulated (cost model): downtime lane "
+                  f"{out.downtime_s!r} s, overlap lane {out.overlap_s!r} s, "
+                  f"train lane {out.train_s!r} s; recovery path "
+                  f"{out.recovery_path!r}, policy "
+                  f"{out.policy_choice!r}; loss_parity {out.loss_parity} "
+                  f"(max delta {out.loss_max_delta!r}); ledger fields "
+                  f"equal to sim-exec's: {got == want}", flush=True)
+            if not out.loss_parity:
+                failures.append(f"{name}: loss_parity False")
+            if got != want:
+                failures.append(f"{name}: ledger {got} is not sim-exec's "
+                                f"{want}")
+        print(f"    launches {launches}", flush=True)
+        idle = [n for n in FLASH if not launches[n]] + \
+            [n for n in GMM + SCAN + MLSTM if launches[n]]
+        if idle:
+            failures.append(f"{name}: launches {launches}")
+        runs.append(run)
+        del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("  campaign: " + json.dumps({"card": card, "runs": runs,
+                                       "launches": total}), flush=True)
+    if failures:
+        raise SystemExit(f"campaign slice: {failures}")
+    return total
 
 
 # the kernels one layer of each type launches (forward, backward) on the
@@ -1582,6 +1719,7 @@ def main() -> int:
         mods, f"GPT-medium, {gpt.num_layers} layers, dp=2 pp=2 mb=2 batch 8 "
         f"seq 2048", gpt, 2, 8, moe=False, first_loss=GPT_FIRST_LOSS)
     mig_launches = drive_migration(mods, gpt, 2, 8, card, gpt_losses[1:])
+    camp_launches = drive_campaign(mods, card, gpt_losses)
     # 1.76 G parameters at 2 layers: with f32 layer weights the first
     # Adam update needs more than the card's 80 GB (flat m, v and master
     # beside the weights, their buckets, the gradients and the update's
@@ -1606,6 +1744,7 @@ def main() -> int:
     names = FLASH + GMM + SCAN + MLSTM
     by_path = {n: {gpt.name: launches[n],
                    f"{gpt.name} migration": mig_launches[n],
+                   f"{gpt.name} campaign": camp_launches[n],
                    qwen.name: moe_launches[n], rgc.name: rg_launches[n],
                    xl.name: xl_launches[n]}
                for n in names}

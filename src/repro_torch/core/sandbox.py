@@ -1,6 +1,7 @@
 """Communication-free sandbox: collective record-replay (§4)
 (counterpart of `repro/core/sandbox.py`: same tape keys, op counters
-and clock charges; tape entries are host copies of the tensors).
+and clock charges; tape entries are host copies of the tensors, and the
+sim-exec engine's symbolic numpy views as they are).
 
 The hook layer sits between the training engine and the CCL (the
 analogue of the paper's PyTorch<->NCCL interception layer). Three modes:
@@ -24,6 +25,7 @@ import enum
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.cluster.costmodel import CostModel, DEFAULT
@@ -47,7 +49,9 @@ class Tape:
     meta: Dict[str, Any] = field(default_factory=dict)
 
     def put(self, key: Tuple, value) -> None:
-        self.entries[key] = value.detach().to("cpu", copy=True)
+        self.entries[key] = (value.detach().to("cpu", copy=True)
+                             if isinstance(value, torch.Tensor)
+                             else np.asarray(value))
 
     def get(self, key: Tuple) -> torch.Tensor:
         if key not in self.entries:
@@ -98,7 +102,9 @@ class Tape:
             return -1
         if self.get(ka).shape != self.get(kg).shape:
             return -1
-        fused = torch.stack([self.get(ka), self.get(kg)])
+        pair = [self.get(ka), self.get(kg)]
+        fused = (torch.stack(pair) if isinstance(pair[0], torch.Tensor)
+                 else np.stack(pair))
         freed = 0
         for k in list(self.entries):
             if k[0] == role_key and k[1] == "p2p" and k[2] in ("act",

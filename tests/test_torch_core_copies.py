@@ -9,7 +9,9 @@ The listed edits (and nothing else) are allowed:
   two methods; `bootstrap_job` takes `full_params` and passes it to
   `engine.setup`;
 - controller, state_sync: the reference's unused `import numpy as np`
-  is left out."""
+  is left out;
+- campaign: `CampaignCfg` has a `device` field, which `build_controller`
+  passes to the engine."""
 import ast
 from pathlib import Path
 
@@ -19,7 +21,7 @@ ROOT = Path(__file__).resolve().parents[1]
 REF, PORT = ROOT / "src" / "repro" / "core", \
     ROOT / "src" / "repro_torch" / "core"
 COPIES = ["two_phase", "migration", "journal", "metrics", "policy",
-          "baselines", "state_sync", "standby", "controller"]
+          "baselines", "state_sync", "standby", "controller", "campaign"]
 COUNT_PARAMS = "from repro.models.registry import count_params"
 
 
@@ -80,6 +82,27 @@ def _undo_full_params(tree) -> int:
     return found
 
 
+def _undo_device(tree) -> int:
+    """Take `device` out of campaign: CampaignCfg's field and the
+    keyword build_controller passes to the engine. Returns how many of
+    the two were found."""
+    found = 0
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ClassDef) and node.name == "CampaignCfg":
+            kept = [n for n in node.body if not (
+                isinstance(n, ast.AnnAssign) and n.target.id == "device")]
+            found += len(node.body) - len(kept)
+            node.body = kept
+        if isinstance(node, ast.FunctionDef) and \
+                node.name == "build_controller":
+            for call in ast.walk(node):
+                if isinstance(call, ast.Call):
+                    kept = [k for k in call.keywords if k.arg != "device"]
+                    found += len(call.keywords) - len(kept)
+                    call.keywords = kept
+    return found
+
+
 def _tree(path: Path, drop=()) -> ast.Module:
     return _Normalise(drop).visit(ast.parse(path.read_text()))
 
@@ -105,4 +128,6 @@ def test_copy_is_the_reference(name):
                ast.parse((PORT / "controller.py").read_text()).body]
         assert top.count(COUNT_PARAMS.replace("repro.", "repro_torch.")) \
             == 1
+    if name == "campaign":
+        assert _undo_device(port) == 2
     assert ast.dump(port) == ast.dump(ref)

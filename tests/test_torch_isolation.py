@@ -49,8 +49,9 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", sorted(
-    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py",
-                                       ROOT / "examples/torch_quickstart.py"]),
+    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"] +
+    [ROOT / "examples" / f"torch_{n}.py"
+     for n in ("quickstart", "rolling_maintenance", "failure_storm")]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     hits = _imports(path)
@@ -99,3 +100,38 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it(
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
+
+
+def test_campaign_real_mode_defaults_to_cuda_and_raises_without_it(
+        monkeypatch):
+    from repro_torch.core import campaign
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        campaign.build_controller(campaign.CampaignCfg(), standby_count=1)
+
+
+def test_campaign_sim_mode_builds_without_a_card(monkeypatch):
+    """The tensor-free engine holds no tensor: it takes the meta device
+    and needs no card."""
+    from repro_torch.core import campaign
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ctl = campaign.build_controller(campaign.CampaignCfg(mode="sim"),
+                                    standby_count=1)
+    assert ctl.engine.device.type == "meta"
+    assert ctl.train(1)
+
+
+@pytest.mark.parametrize("name", ["torch_rolling_maintenance",
+                                  "torch_failure_storm"])
+def test_examples_default_to_cuda_and_raise_without_it(monkeypatch, name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main([])
