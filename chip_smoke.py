@@ -5,7 +5,8 @@
 Phases (each failure exits non-zero):
   1. card: name and power limit, torch and CUDA versions, kernel build,
      each kernel instance's registers and spills (ptxas); every
-     attention instance (forward, dq, dkdv), every grouped matmul
+     attention instance (forward, dq, dkdv at each width pair: one
+     width in 16-256, and q.k 192 with v 128), every grouped matmul
      instance (gmm_mma_kernel: three products, wide and narrow) and
      every instance of the mLSTM kernels' passes with products (state
      walks, output, dq/dk and dv passes) must issue tensor-core
@@ -18,11 +19,14 @@ Phases (each failure exits non-zero):
      are allocated filled with NaN, so one left unwritten fails),
      bitwise repeats, and times: the kernel, the plain version, and one
      PyTorch call as a yardstick only, never called by the port
-     (scaled_dot_product_attention for attention, with the window as a
-     mask where there is one, whose forward flash_fwd must beat at the
-     three paths' shapes; torch.bmm for the grouped expert matmul, which
-     each of its three kernels must beat at both of the MoE path's
-     shapes; both timed in turns with the kernel; none for the RG-LRU
+     (scaled_dot_product_attention for attention on 4-D views, with the
+     window as a mask where there is one, run by the first of its fused
+     backends that takes the shape (cuDNN, flash, mem-efficient; named,
+     and none taking it fails), whose forward flash_fwd must beat at the
+     four paths' shapes; torch.bmm for the
+     grouped expert matmul, which each of its three kernels must beat at
+     both shapes of each MoE path; both timed in turns with the kernel;
+     none for the RG-LRU
      scan and the chunkwise mLSTM); the mLSTM's dq/dk kernel's dC
      workspace against its plain reverse pass, the dv kernel on that
      workspace against its plain pass on the same dC, dq and dk, and
@@ -34,11 +38,12 @@ Phases (each failure exits non-zero):
      chunk's product and carry) against its plain passes, and the
      device time of each of its passes;
   3. reference: the engine on the card against the same engine on the
-     CPU (plain versions) at the campaign's tiny GPT and at the reduced
-     Qwen1.5-MoE config, and make_train_step on the card against the
-     CPU at the reduced RecurrentGemma config cut to 5 layers (window
-     16 below seq 64) and the reduced xLSTM config at 4 layers (seq
-     200: three chunks of 64 and a padded fourth);
+     CPU (plain versions) at the campaign's tiny GPT, at the reduced
+     Qwen1.5-MoE config and at the reduced DeepSeek-V2-Lite config with
+     the full model's MLA widths, and make_train_step on the card
+     against the CPU at the reduced RecurrentGemma config cut to 5
+     layers (window 16 below seq 64) and the reduced xLSTM config at 4
+     layers (seq 200: three chunks of 64 and a padded fourth);
   4. slice, GPT: PipelineEngine trains GPT-medium at full width (24
      layers, d_model 1024, 16 x 64 heads, d_ff 4096, vocab 50304, f32
      params) over dp=2 x pp=2, 2 micro-batches, global batch 8, seq
@@ -91,12 +96,17 @@ Phases (each failure exits non-zero):
      without a tensor, and each run must launch every attention kernel.
      Per run it prints the wall seconds the card took (measured), the
      seconds of it in checkpoint ticks, the simulated downtime, overlap
-     and train lanes, the peak device memory and the launches.
+     and train lanes, the peak device memory and the launches;
+ 10. slice, DeepSeek-V2-Lite (run last): PipelineEngine trains it at full
+     width (d_model 2048, 16 heads of multi-head latent attention:
+     kv_lora_rank 512, q.k 128 + 64 rotary, v 128; 64 experts top-6 plus
+     2 shared, d_expert 1408; vocab 102400, untied head), depth cut to 2
+     layers, with phase 5's engine arguments and bf16 layer weights.
 Each engine slice runs setup, record_iteration and 3 x train_iteration
 twice with the same seed; the launcher slices run the launcher twice.
-Losses must be bitwise equal across the two runs, and the GPT and MoE
-slices' first losses equal the pinned ones (GPT_FIRST_LOSS,
-MOE_FIRST_LOSS). Every
+Losses must be bitwise equal across the two runs, and the GPT, MoE and
+DeepSeek slices' first losses equal the pinned ones (GPT_FIRST_LOSS,
+MOE_FIRST_LOSS, DS_FIRST_LOSS). Every
 kernel's launch count is zeroed just before a path's first run and read
 just after it, and must equal the count derived from the config. The
 last lines are a JSON line per kernel result, the card line, and
@@ -149,6 +159,9 @@ GPT_FIRST_LOSS = 11.067411184310913
 # gmm_fwd (gmm_mma_kernel, 128 x 64 tiles) and the attention forward
 # (fwd_kernel, d 128 f32), both on the tensor cores
 MOE_FIRST_LOSS = 12.318589687347412
+# first loss of the DeepSeek-V2-Lite slice, pinned to the attention
+# forward at the width pair (fwd_kernel, q.k 192, v 128, f32) and gmm_fwd
+DS_FIRST_LOSS = 11.909626483917236
 # H100 SXM peaks (NVIDIA data sheet, dense), HBM3 bandwidth. f32: the
 # TF32 tensor-core rate of 495 TFLOP/s over the three products that keep
 # f32 accuracy (3xTF32, as the attention backward runs), the card's
@@ -158,10 +171,14 @@ MOE_FIRST_LOSS = 12.318589687347412
 PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 # the main paths' attention: micro-batch 2, seq 2048; GPT-medium 16 x 64
-# heads (timed for the JSON line), Qwen1.5-MoE 16 x 128 heads
+# heads (timed for the JSON line), Qwen1.5-MoE 16 x 128 heads;
+# DeepSeek-V2-Lite's multi-head latent attention, 16 heads of q.k width
+# 128 + 64 and v width 128 (`d` is the q.k width, `dv` the v width where
+# it differs)
 SLICE = dict(bh=2 * 16, s=2048, d=64, dtype=torch.float32, causal=True,
              window=0)
 MOE_ATTN = dict(SLICE, d=128)
+MLA_ATTN = dict(SLICE, d=192, dv=128)
 # RecurrentGemma-2B's local attention: batch 1 x 10 q heads (the one kv
 # head expanded), seq 4096, head dim 256, window 2048, bf16 activations
 RG_ATTN = dict(bh=10, s=4096, d=256, dtype=torch.bfloat16, causal=True,
@@ -173,6 +190,9 @@ RG_SCAN = dict(b=1, s=4096, d=2560, a_dtype=torch.float32,
 # gate/up (E, M, K) @ (E, K, N), down with K and N swapped
 GMM_SLICE = dict(e=60, m=342, k=2048, n=1408, dtype=torch.float32)
 GMM_DOWN = dict(GMM_SLICE, k=1408, n=2048)
+# the DeepSeek path's: 64 experts, B*C = 2 * 240 tokens
+GMM_DS = dict(GMM_SLICE, e=64, m=480)
+GMM_DS_DOWN = dict(GMM_DS, k=1408, n=2048)
 # chunkwise mLSTM: max |kernel - plain| over max |plain| per output (f32
 # sums over K = 512 and the chunk in other orders; bf16 h rounds to 8
 # bits, the gradients are f32 from the same bf16 inputs)
@@ -295,20 +315,23 @@ def visible_pairs(s, causal, window):
     return int((hi - lo).clamp(min=0).sum())
 
 
-def attention_work(name, bh, s, d, dtype, causal, window):
-    """(FLOPs, bytes) the function needs at this shape: only the
-    unmasked (q, k) pairs count; each input read once, each output
-    written once."""
+def attention_work(name, bh, s, d, dtype, causal, window, dv=None):
+    """(FLOPs, bytes) the function needs at this shape, q and k (and
+    their gradients) `d` wide, v, o and dO (and dv) `dv` wide (d where
+    None): only the unmasked (q, k) pairs count; each input read once,
+    each output written once."""
+    dv = dv or d
     pairs = bh * visible_pairs(s, causal, window)
     el = torch.tensor([], dtype=dtype).element_size()
-    tile = bh * s * d * el
+    tk, tv = bh * s * d * el, bh * s * dv * el   # one (BH, S, .) tensor
     row = bh * s * 4                 # one f32 value a row: lse, delta
     if name == "flash_fwd":          # QK^T, PV; reads q,k,v; writes o,lse
-        return 4 * d * pairs, 3 * tile + tile + row
+        return 2 * (d + dv) * pairs, 2 * tk + tv + tv + row
     if name == "flash_bwd_dkdv":     # S, dP, dV, dK; reads q,k,v,dO,lse,D
-        return 8 * d * pairs, 4 * tile + 2 * row + 2 * tile
+        return 4 * (d + dv) * pairs, 2 * tk + 2 * tv + 2 * row + tk + tv
     # dq: D = rowsum(dO O), S, dP, dQ; reads q,k,v,o,dO,lse; writes dq,D
-    return 6 * d * pairs + 2 * bh * s * d, 5 * tile + row + tile + row
+    return ((4 * d + 2 * dv) * pairs + 2 * bh * s * dv,
+            2 * tk + 3 * tv + row + tk + row)
 
 
 def gmm_work(e, m, k, n, dtype):
@@ -370,14 +393,29 @@ def check_kernels(fa):
              dict(bh=3, s=250, d=64, causal=True, dtype=torch.bfloat16,
                   window=45),
              dict(bh=2, s=200, d=128, causal=False, dtype=torch.float32,
-                  window=90)]
+                  window=90),
+             # the width pair (q.k 192, v 128): the DeepSeek path's shape,
+             # bf16 at a smaller one, and the tiles' edges (S no multiple
+             # of the 32- and 64-row tiles, below one tile, a window, no
+             # mask)
+             dict(MLA_ATTN),
+             dict(MLA_ATTN, bh=8, s=512, dtype=torch.bfloat16),
+             dict(bh=3, s=130, d=192, dv=128, causal=True, **f32),
+             dict(bh=2, s=77, d=192, dv=128, causal=True, **bf16),
+             dict(bh=4, s=20, d=192, dv=128, causal=True, **f32),
+             dict(bh=2, s=96, d=192, dv=128, causal=False, **bf16),
+             dict(bh=3, s=300, d=192, dv=128, causal=True,
+                  dtype=torch.float32, window=70),
+             dict(bh=2, s=200, d=192, dv=128, causal=True,
+                  dtype=torch.bfloat16, window=45)]
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results, shapes = {}, {n: [] for n in FLASH}
     for c in cases:
         bh, s, d, dt, causal, win = c["bh"], c["s"], c["d"], c["dtype"], \
             c["causal"], c["window"]
-        q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen)
-                       .to(dt) for _ in range(4))
+        dv = c.get("dv", d)
+        q, k, v, do = (torch.randn(bh, s, w, device="cuda", generator=gen)
+                       .to(dt) for w in (d, d, dv, dv))
         sc = d ** -0.5
         with unwritten_is_nan():
             o, lse = fa.flash_fwd(q, k, v, causal, sc, win)
@@ -413,8 +451,8 @@ def check_kernels(fa):
         rel_tol = math.inf if f32 else BF16_REL_TOL
         ok = repeat and delta_rel <= F32_FWD_TOL and all(
             errs[n] <= tols[n] and rels[n] <= rel_tol for n in FLASH)
-        label = (f"bh={bh} s={s} d={d} {str(dt)[6:]} "
-                 f"{'causal' if causal else 'full'}"
+        label = (f"bh={bh} s={s} d={d}" + (f" dv={dv}" if dv != d else "")
+                 + f" {str(dt)[6:]} {'causal' if causal else 'full'}"
                  + (f" window={win}" if win else ""))
         print(f"  {label}: " + ", ".join(
             f"{n} err {errs[n]:.3e} (tol {tols[n]:g}; rel {rels[n]:.2e}, "
@@ -423,7 +461,7 @@ def check_kernels(fa):
             f"repeat {repeat}", flush=True)
         if not ok:
             raise SystemExit(f"kernel check failed at {label}")
-        if c in (SLICE, MOE_ATTN, RG_ATTN):
+        if c in (SLICE, MOE_ATTN, MLA_ATTN, RG_ATTN):
             timed = {n: {"max_abs_err": errs[n]} for n in FLASH}
             time_attention(fa, timed, c, q, k, v, do, o, lse, sc)
             for n in FLASH:
@@ -440,10 +478,12 @@ def time_attention(fa, results, shape, q, k, v, do, o, lse, sc):
     """Times of the three kernels, the plain versions and SDPA at one of
     the paths' shapes; flash_fwd and SDPA's forward are timed in turns,
     and the kernel must be faster."""
+    from torch.nn.attention import sdpa_kernel
     causal, win, reps = shape["causal"], shape["window"], 10
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
     delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
-    common = (shape["bh"], shape["s"], shape["d"],
+    common = (shape["bh"], shape["s"], q.shape[-1], v.shape[-1],
               0 if shape["dtype"] == torch.float32 else 1, int(causal),
               win, sc)
     ptr = lambda *ts: [t.data_ptr() for t in ts]
@@ -453,11 +493,20 @@ def time_attention(fa, results, shape, q, k, v, do, o, lse, sc):
     mask = None
     if win:
         mask = fa._mask(shape["s"], shape["s"], causal, win, q.device)
-    lib = lambda a, b, c: sdpa(a, b, c, attn_mask=mask,
-                               is_causal=causal and mask is None, scale=sc)
+    is_causal = causal and mask is None
+    # SDPA's fused backends take only 4-D (B, H, S, d) operands; on 3-D
+    # ones every call runs the unfused math path
+    q4, k4, v4, do4 = (t.unsqueeze(0) for t in (q, k, v, do))
+    name, backend = sdpa_fused(q4, k4, v4, mask, is_causal)
+
+    def lib(a, b, c):
+        with sdpa_kernel(backend):
+            return sdpa(a, b, c, attn_mask=mask, is_causal=is_causal,
+                        scale=sc)
+
     results["flash_fwd"]["ms"], results["flash_fwd"]["library_ms"] = \
         time_pair_ms(lambda: fa.flash_fwd(q, k, v, causal, sc, win),
-                     lambda: lib(q, k, v), 2 * reps)
+                     lambda: lib(q4, k4, v4), 2 * reps)
     # in the order flash_bwd runs them: dq writes the delta dkdv reads
     results["flash_bwd_dq"]["ms"] = time_ms(lambda: fa.launch(
         "flash_bwd_dq", *ptr(q, k, v, o, lse, do, dq, delta), *common,
@@ -473,17 +522,18 @@ def time_attention(fa, results, shape, q, k, v, do, o, lse, sc):
     # the plain backward computes dq, dk and dv in one pass
     results["flash_bwd_dkdv"]["plain_ms"] = plain_bwd
     results["flash_bwd_dq"]["plain_ms"] = plain_bwd
-    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
     out = lib(ql, kl, vl)
     # SDPA's backward yields dq, dk and dv from one call
     lib_bwd = time_ms(lambda: torch.autograd.grad(
-        out, (ql, kl, vl), do, retain_graph=True), reps)
+        out, (ql, kl, vl), do4, retain_graph=True), reps)
     results["flash_bwd_dkdv"]["library_ms"] = lib_bwd
     results["flash_bwd_dq"]["library_ms"] = lib_bwd
+    at = f"d={shape['d']}" + (f" dv={shape['dv']}" if "dv" in shape else "")
     for n in FLASH:
         results[n]["bound_ms"], results[n]["bound_by"] = bound(
             *attention_work(n, **shape), shape["dtype"])
-        print(f"  {n} at d={shape['d']}"
+        print(f"  {n} at {at}"
               + (f" window={win}" if win else "")
               + f": {results[n]['ms']:.4f} ms, "
               f"plain {results[n]['plain_ms']:.4f} ms, library "
@@ -491,15 +541,36 @@ def time_attention(fa, results, shape, q, k, v, do, o, lse, sc):
               f"{results[n]['bound_ms']:.4f} ms ({results[n]['bound_by']})",
               flush=True)
     pair = results["flash_bwd_dq"]["ms"] + results["flash_bwd_dkdv"]["ms"]
-    print(f"  backward pair at d={shape['d']}: flash_bwd_dq + "
-          f"flash_bwd_dkdv {pair:.4f} ms, SDPA backward {lib_bwd:.4f} ms, "
-          f"ratio {pair / lib_bwd:.3f}", flush=True)
+    print(f"  backward pair at {at}: flash_bwd_dq + "
+          f"flash_bwd_dkdv {pair:.4f} ms, SDPA ({name}) backward "
+          f"{lib_bwd:.4f} ms, ratio {pair / lib_bwd:.3f}", flush=True)
     fwd = results["flash_fwd"]
-    print(f"  forward at d={shape['d']}: flash_fwd / SDPA forward "
+    print(f"  forward at {at}: flash_fwd / SDPA ({name}) forward "
           f"{fwd['ms'] / fwd['library_ms']:.3f}", flush=True)
     if fwd["ms"] >= fwd["library_ms"]:
-        raise SystemExit(f"flash_fwd not faster than SDPA's forward at "
-                         f"{shape}")
+        raise SystemExit(f"flash_fwd not faster than SDPA's {name} "
+                         f"forward at {shape}")
+
+
+def sdpa_fused(q, k, v, mask, is_causal):
+    """(name, SDPBackend) of the first of SDPA's fused backends (cuDNN,
+    flash, mem-efficient) that takes these 4-D operands; the unfused
+    math path is no yardstick, so the run fails where none does."""
+    from torch.nn.attention import SDPBackend
+    cuda = torch.backends.cuda
+    params = cuda.SDPAParams(q, k, v, mask, 0.0, is_causal, False)
+    for name, backend, takes in (
+            ("cuDNN", SDPBackend.CUDNN_ATTENTION,
+             cuda.can_use_cudnn_attention),
+            ("flash", SDPBackend.FLASH_ATTENTION,
+             cuda.can_use_flash_attention),
+            ("mem-efficient", SDPBackend.EFFICIENT_ATTENTION,
+             cuda.can_use_efficient_attention)):
+        if takes(params):
+            return name, backend
+    raise SystemExit(f"no fused SDPA backend takes q {tuple(q.shape)} "
+                     f"{q.dtype}, v {tuple(v.shape)}, mask "
+                     f"{mask is not None}")
 
 
 def gmm_wide(a, b, a_row: int, b_row: int) -> bool:
@@ -543,15 +614,17 @@ def gmm_instances(fn, tries: int = 3):
 
 def check_gmm(gm):
     """The three grouped-matmul kernels against their plain versions at
-    the MoE path's gate/up and down shapes and at ragged small shapes
+    the MoE paths' gate/up and down shapes (Qwen1.5-MoE's and
+    DeepSeek-V2-Lite's) and at ragged small shapes
     that cut every edge of gmm_mma_kernel's tile (rows no multiple of
     MMA_BM = 128, reductions no multiple of the 32 f32 / 64 bf16 R tile,
     columns no multiple of 8), with the wide and the narrow copies;
     each kernel must run the instance the host's rule picks. Returns
-    the gate/up-shape results by kernel name, the down shape's under
-    "shapes"."""
+    Qwen's gate/up-shape results by kernel name, every path shape's
+    under "shapes"."""
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [dict(GMM_SLICE), dict(GMM_DOWN),
+    cases = [dict(GMM_SLICE), dict(GMM_DOWN), dict(GMM_DS),
+             dict(GMM_DS_DOWN),
              dict(e=3, m=5, k=33, n=17, dtype=f32),
              dict(e=8, m=20, k=64, n=96, dtype=f32),
              dict(e=2, m=130, k=70, n=65, dtype=f32),
@@ -608,7 +681,7 @@ def check_gmm(gm):
         if ran != want_ran:
             raise SystemExit(f"grouped matmul at {label} ran {ran}, not "
                              f"{want_ran}")
-        if c in (GMM_SLICE, GMM_DOWN):
+        if c in (GMM_SLICE, GMM_DOWN, GMM_DS, GMM_DS_DOWN):
             timed = {nm: {"max_abs_err": errs[nm]} for nm in GMM}
             time_gmm(gm, timed, c, x, w, dy)
             for nm in GMM:
@@ -1175,12 +1248,14 @@ def build_engine(cfg, device, seed=0, dp=2, pp=2, batch=8, seq=32,
 
 def check_reference():
     """The card's engine (kernels) against the CPU engine (plain
-    versions) at the campaign's tiny GPT and the reduced Qwen1.5-MoE:
-    same seed, same weights."""
+    versions) at the campaign's tiny GPT, the reduced Qwen1.5-MoE and
+    the reduced DeepSeek-V2-Lite with the full model's MLA widths (q.k
+    128 + 64, v 128: its own reduced widths have no kernel): same seed,
+    same weights."""
     from repro_torch.configs import qwen2_moe_a2_7b
     from repro_torch.configs.gpt import tiny_gpt
     for cfg in (tiny_gpt(layers=4, d=64, heads=4, vocab=256),
-                qwen2_moe_a2_7b.reduced()):
+                qwen2_moe_a2_7b.reduced(), ds_reduced()):
         losses = {}
         for dev in ("cuda", "cpu"):
             eng = build_engine(cfg, dev)
@@ -1195,6 +1270,17 @@ def check_reference():
         if not (all(map(math.isfinite, losses["cuda"])) and diff <= 1e-4):
             raise SystemExit(f"card engine disagrees with the CPU engine "
                              f"at {cfg.name}")
+
+
+def ds_reduced():
+    """The reference's reduced DeepSeek-V2-Lite at the full model's MLA
+    widths, as tests/test_torch_mla.py runs it."""
+    from repro_torch.configs import deepseek_v2_lite_16b
+    from repro_torch.configs.base import MLACfg
+    full = deepseek_v2_lite_16b.CONFIG.mla
+    return deepseek_v2_lite_16b.reduced().replace(mla=MLACfg(
+        kv_lora_rank=32, q_lora_rank=0, qk_nope_dim=full.qk_nope_dim,
+        qk_rope_dim=full.qk_rope_dim, v_head_dim=full.v_head_dim))
 
 
 def check_step_reference(cfg, seq: int):
@@ -1271,8 +1357,8 @@ def expected_launches(cfg, dp: int, moe: bool):
     """Launches over record + 3 train iterations (4 x dp replicas x 2
     micro-batches): every stage-0 layer runs forward twice (fwd, then
     the mid_bwd recompute) and the last stage's once; every layer runs
-    backward once. An attn_moe layer makes three expert products in each
-    direction."""
+    backward once. An attn_moe or mla_moe layer makes three expert
+    products in each direction."""
     per = cfg.num_layers // 2                  # layers per stage, pp=2
     calls = 4 * dp * 2
     fwd, bwd = calls * 3 * per, calls * 2 * per
@@ -1651,8 +1737,8 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import (qwen2_moe_a2_7b, recurrentgemma_2b,
-                                     xlstm_350m)
+    from repro_torch.configs import (deepseek_v2_lite_16b, qwen2_moe_a2_7b,
+                                     recurrentgemma_2b, xlstm_350m)
     from repro_torch.configs.gpt import GPT_MEDIUM
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
@@ -1678,7 +1764,7 @@ def main() -> int:
     # built for the tensor cores: each issues HMMA and none spills
     tensor_core_instances(libs, "flash_attention",
                           ("fwd_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel"),
-                          3 * len(fa.HEAD_DIMS) * len(fa._DTYPE_CODE))
+                          3 * len(fa.WIDTHS) * len(fa._DTYPE_CODE))
     tensor_core_instances(libs, "moe_gmm", ("gmm_mma_kernel",),
                           3 * 2 * len(gm._DTYPE_CODE))
     # the mLSTM kernels' passes: their products on the tensor cores
@@ -1741,12 +1827,20 @@ def main() -> int:
         "--arch", xl.name, "--steps", str(XL_STEPS), "--batch", "4",
         "--seq", str(XL_SEQ), "--log-every", "1", "--device", "cuda"],
         f"batch 4 seq {XL_SEQ}, launcher defaults (bf16 params, remat)")
+    # phase 10: DeepSeek-V2-Lite with phase 5's engine arguments and
+    # cuts (1.59 G parameters at 2 layers)
+    dsc = deepseek_v2_lite_16b.CONFIG.replace(num_layers=2)
+    ds_launches, _ = drive(mods, f"{dsc.name}, {dsc.num_layers} layers, "
+                           f"dp=1 pp=2 mb=2 batch 4 seq 2048, bf16 layer "
+                           f"weights", dsc, 1, 4, moe=True,
+                           first_loss=DS_FIRST_LOSS,
+                           param_dtype=torch.bfloat16)
     names = FLASH + GMM + SCAN + MLSTM
     by_path = {n: {gpt.name: launches[n],
                    f"{gpt.name} migration": mig_launches[n],
                    f"{gpt.name} campaign": camp_launches[n],
                    qwen.name: moe_launches[n], rgc.name: rg_launches[n],
-                   xl.name: xl_launches[n]}
+                   xl.name: xl_launches[n], dsc.name: ds_launches[n]}
                for n in names}
 
     print("kernels: " + ", ".join(f"{n} ok" for n in names))

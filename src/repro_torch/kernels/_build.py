@@ -27,14 +27,15 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every exported function, by library
 SIGNATURES = {
     "flash_attention": {
-        # q, k, v, o, lse, bh, s, d, dtype, causal, window, scale, stream
-        "flash_fwd": [P, P, P, P, P, I, I, I, I, I, I, F, P],
-        # q, k, v, delta, lse, dout, dk, dv, bh, s, d, dtype, causal,
+        # q, k, v, o, lse, bh, s, dk (q.k width), dv (v width), dtype,
+        # causal, window, scale, stream
+        "flash_fwd": [P] * 5 + [I] * 7 + [F, P],
+        # q, k, v, delta, lse, dout, dk, dv, bh, s, dk, dv, dtype, causal,
         # window, scale, stream
-        "flash_bwd_dkdv": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
-        # q, k, v, o, lse, dout, dq, delta, bh, s, d, dtype, causal,
+        "flash_bwd_dkdv": [P] * 8 + [I] * 7 + [F, P],
+        # q, k, v, o, lse, dout, dq, delta, bh, s, dk, dv, dtype, causal,
         # window, scale, stream
-        "flash_bwd_dq": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+        "flash_bwd_dq": [P] * 8 + [I] * 7 + [F, P],
     },
     "moe_gmm": {
         # x, w, y, e, m, k, n, dtype, stream

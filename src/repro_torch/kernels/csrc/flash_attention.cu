@@ -31,17 +31,22 @@
 // Every block owns its outputs: no atomics, and a fixed loop order, so
 // results repeat bitwise from run to run.
 //
-// Layout: q, k, v, o, dO, dq, dk, dv are contiguous (BH, S, D); f32 or
-// bf16, computed in f32; D is a template parameter (16, 32, 64, 128,
-// 256). S need not be a multiple of any tile: rows >= S load as zero,
-// their scores are masked and their outputs are not written, so the
-// reference's "blocks divide S" contract is relaxed rather than kept.
+// Layout: q, k, dq, dk are contiguous (BH, S, DK) and v, o, dO, dv
+// contiguous (BH, S, DV); f32 or bf16, computed in f32. The widths are a
+// template pair (DK, DV): DK = DV in (16, 32, 64, 128, 256), and (192,
+// 128), multi-head latent attention's q.k width (128 + 64 rotary) beside
+// its v width (DeepSeek-V2, src/repro/models/mla.py). QK^T and dQ, dK run
+// at DK; PV, dO V^T, D = rowsum(dO * O) and dV at DV. S need not be a
+// multiple of any tile: rows >= S load as zero, their scores are masked
+// and their outputs are not written, so the reference's "blocks divide
+// S" contract is relaxed rather than kept.
 //
 // What bounds it on an H100: at the main paths' shapes (BH 32, S 2048,
-// D 64 and 128, f32, causal; BH 10, S 4096, D 256, bf16, window 2048)
-// the work is 4 D FLOPs per visible (q, k) pair forward and 14 D
-// backward against a few hundred bytes per row, far above the card's
-// bytes-to-FLOP line, so the bound is arithmetic.
+// D 64 and 128 and (192, 128), f32, causal; BH 10, S 4096, D 256, bf16,
+// window 2048) the work is 2 (DK + DV) FLOPs per visible (q, k) pair
+// forward and 8 DK + 6 DV backward (both kernels form S and dP) against
+// a few hundred bytes per row, far above the card's bytes-to-FLOP line,
+// so the bound is arithmetic.
 //
 // Every product runs on the tensor cores through warp-level mma.sync,
 // accumulating in f32:
@@ -75,14 +80,14 @@
 // the four shares at the end) and the output accumulator, which is
 // rescaled by exp2(m_old - m_new) before each tile's P V is added.
 // Where the outputs outgrow a thread's registers (dK and dV, 2 x 16 x
-// 256 f32 a warp at D = 256; the bf16 forward's O at D = 256), WD = 2
-// warps share each 16 rows, each computes S (and dP) for half of the
-// walked columns and owns half of the output columns, and P (and dS; in
-// the forward also each row's max and denominator) pass through shared
-// memory between them. Tiles and warps per instance are in
-// attn_tiles(): 64-row own tiles and 4 warps up to D = 64, 8 warps
-// above, walked tiles of 16 to 64 rows as the registers allow; the
-// forward takes dq's but at D = 256 in bf16.
+// 256 f32 a warp at D = 256 and 16 x (192 + 128) at (192, 128); the
+// bf16 forward's O at D = 256), WD = 2 warps share each 16 rows, each
+// computes S (and dP) for half of the walked columns and owns half of
+// the output columns, and P (and dS; in the forward also each row's max
+// and denominator) pass through shared memory between them. Tiles and
+// warps per instance are in attn_tiles(): 64-row own tiles and 4 warps
+// up to D = 64, 8 warps above, walked tiles of 16 to 64 rows as the
+// registers allow; the forward takes dq's but at D = 256 in bf16.
 // The walked tiles (Q, dO, lse, D in dkdv; K, V in the forward and dq)
 // come in by cp.async into a ring of two stages, so the next tile's copy
 // runs under the current tile's products; the block's own tiles load
@@ -284,11 +289,23 @@ __device__ __forceinline__ void store_rows(T* out,
 // D = 256, dK and dV take two column groups (WD = 2), and so does the
 // bf16 forward's O: with 128 accumulators a thread it spilled at every
 // walked tile from 16 to 64 rows.
+// At (DK, DV) = (192, 128) the forward's O is d 128's, so it takes d
+// 128's tiles; dQ (96 accumulators a thread) walks 32-row tiles, and in
+// f32 its own tiles are 64 rows, since 128 rows of Q and dO beside the
+// ring came to 246 KB of shared memory; dK and dV (160 together) take
+// two column groups, as at D = 256.
 struct Tiles { int bm, bn, nw, wd; };
 enum Kernel { FWD, DQ, DKDV };
 
-template <typename T, int D, Kernel K> constexpr Tiles attn_tiles() {
+template <typename T, int DK, int DV, Kernel K> constexpr Tiles attn_tiles() {
   constexpr bool f32 = std::is_same<T, float>::value;
+  if constexpr (DK != DV) {
+    static_assert(DK == 192 && DV == 128, "no tiles for this width pair");
+    if (K == FWD) return {128, f32 ? 32 : 64, 8, 1};
+    if (K == DQ) return f32 ? Tiles{64, 32, 4, 1} : Tiles{128, 32, 8, 1};
+    return f32 ? Tiles{32, 32, 4, 2} : Tiles{64, 32, 8, 2};
+  }
+  constexpr int D = DK;
   if (D <= 64) return {64, f32 ? 32 : 64, 4, 1};
   if (D == 128) return {128, f32 ? 32 : K == DKDV ? 16 : 64, 8, 1};
   if (K == DKDV) return f32 ? Tiles{32, 32, 4, 2} : Tiles{64, 32, 8, 2};
@@ -311,23 +328,25 @@ template <typename T, int D> __host__ __device__ constexpr int tile_ld() {
 // of O, and pass their halves of each row's max and of P through shared
 // memory. A tile none of whose keys a row group sees is skipped by its
 // warps alone.
-template <typename T, int D, int BM, int BN, int NW, int WD>
+template <typename T, int DK, int DV, int BM, int BN, int NW, int WD>
 __global__ void __launch_bounds__(NW * 32, 1)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ o,
            float* __restrict__ lse, int S, int causal, int window,
            float scale) {
-  constexpr int WM = NW / WD, LD = tile_ld<T, D>(), NTH = NW * 32;
-  constexpr int BNW = BN / WD, DW = D / WD, LDP = BN + 8;
+  constexpr int WM = NW / WD, NTH = NW * 32;
+  constexpr int LDK = tile_ld<T, DK>(), LDV = tile_ld<T, DV>();
+  constexpr int STAGE = BN * (LDK + LDV);  // a ring stage: K, then V
+  constexpr int BNW = BN / WD, DW = DV / WD, LDP = BN + 8;
   static_assert(BM == 16 * WM && BNW % 16 == 0 && DW % 16 == 0, "tiles");
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
-  T* KV = Qs + BM * LD;                    // stage s: K at KV + 2 s BN LD
-  float* Ps = reinterpret_cast<float*>(KV + 4 * BN * LD);  // WD > 1: P
+  T* KV = Qs + BM * LDK;                   // stage s: K at KV + s STAGE
+  float* Ps = reinterpret_cast<float*>(KV + 2 * STAGE);    // WD > 1: P
   float* Xs = Ps + BM * LDP;               // WD > 1: [wd][row] max, then l
   const int bh = blockIdx.x, n_qt = (S + BM - 1) / BM;
   const int q0 = (n_qt - 1 - (int)blockIdx.y) * BM;   // heaviest first
-  const size_t base = (size_t)bh * S * D;
+  const size_t bk = (size_t)bh * S * DK, bv = (size_t)bh * S * DV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3, wm = warp % WM, wd = warp / WM;
   const int n_kv = (S + BN - 1) / BN;
@@ -335,10 +354,10 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_hi = causal ? min(n_kv, (min(q0 + BM, S) - 1) / BN + 1)
                            : n_kv;
 
-  load_rows<T, D, BM, LD, NTH>(Qs, q + base, q0, S);
+  load_rows<T, DK, BM, LDK, NTH>(Qs, q + bk, q0, S);
   if (kv_lo < kv_hi) {
-    load_rows<T, D, BN, LD, NTH>(KV, k + base, kv_lo * BN, S);
-    load_rows<T, D, BN, LD, NTH>(KV + BN * LD, v + base, kv_lo * BN, S);
+    load_rows<T, DK, BN, LDK, NTH>(KV, k + bk, kv_lo * BN, S);
+    load_rows<T, DV, BN, LDV, NTH>(KV + BN * LDK, v + bv, kv_lo * BN, S);
   }
   cp_commit();
 
@@ -350,16 +369,16 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int it = kv_lo; it < kv_hi; ++it) {
     const int st = (it - kv_lo) & 1;
     if (it + 1 < kv_hi) {
-      T* nxt = KV + (st ^ 1) * 2 * BN * LD;
-      load_rows<T, D, BN, LD, NTH>(nxt, k + base, (it + 1) * BN, S);
-      load_rows<T, D, BN, LD, NTH>(nxt + BN * LD, v + base, (it + 1) * BN,
-                                   S);
+      T* nxt = KV + (st ^ 1) * STAGE;
+      load_rows<T, DK, BN, LDK, NTH>(nxt, k + bk, (it + 1) * BN, S);
+      load_rows<T, DV, BN, LDV, NTH>(nxt + BN * LDK, v + bv, (it + 1) * BN,
+                                     S);
     }
     cp_commit();
     cp_wait<1>();
     __syncthreads();
-    const T* Ks = KV + st * 2 * BN * LD;
-    const T* Vs = Ks + BN * LD;
+    const T* Ks = KV + st * STAGE;
+    const T* Vs = Ks + BN * LDK;
     const int k0 = it * BN, c0 = k0 + wd * BNW;
     const bool none = r0 >= S || (causal && k0 > r0 + 15) ||
                       (window && r0 - (k0 + BN - 1) >= window);
@@ -367,7 +386,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       (window && r0 + 15 - k0 >= window) || k0 + BN > S;
     float s[BNW / 8][4], mx[2] = {NEG_INF, NEG_INF};
     if (!none) {
-      score<T, D, LD, BNW>(s, Qs + wm * 16 * LD, Ks + wd * BNW * LD, lane);
+      score<T, DK, LDK, BNW>(s, Qs + wm * 16 * LDK, Ks + wd * BNW * LDK,
+                             lane);
 #pragma unroll
       for (int j = 0; j < BNW / 8; ++j)
 #pragma unroll
@@ -431,7 +451,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
       if constexpr (WD == 1) {
-        outer<T, BN, D, LD>(acc, s, Vs, lane);
+        outer<T, BN, DV, LDV>(acc, s, Vs, lane);
       } else {
         float rows[BN / 8][4];             // the full rows of P
 #pragma unroll
@@ -443,7 +463,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             rows[j][2 * h] = a.x;
             rows[j][2 * h + 1] = a.y;
           }
-        outer<T, BN, DW, LD>(acc, rows, Vs + wd * DW, lane);
+        outer<T, BN, DW, LDV>(acc, rows, Vs + wd * DW, lane);
       }
     }
     __syncthreads();                       // stage st free for it + 2
@@ -476,10 +496,10 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < DW / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] *= inv[e >> 1];
-  store_rows<T, D, DW>(o + base, acc, r0, wd * DW, S, 1.f, lane);
+  store_rows<T, DV, DW>(o + bv, acc, r0, wd * DW, S, 1.f, lane);
 }
 
-template <typename T, int D, int BM, int BN, int NW>
+template <typename T, int DK, int DV, int BM, int BN, int NW>
 __global__ void __launch_bounds__(NW * 32, 1)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ o,
@@ -487,14 +507,16 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               T* __restrict__ dq, float* __restrict__ delta, int S,
               int causal, int window, float scale) {
   static_assert(BM == 16 * NW, "dq: one warp per 16 q rows");
-  constexpr int LD = tile_ld<T, D>(), NTH = NW * 32;
+  constexpr int NTH = NW * 32;
+  constexpr int LDK = tile_ld<T, DK>(), LDV = tile_ld<T, DV>();
+  constexpr int STAGE = BN * (LDK + LDV);  // a ring stage: K, then V
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + BM * LD;
-  T* KV = dOs + BM * LD;                   // stage s: K at KV + 2 s BN LD
+  T* dOs = Qs + BM * LDK;
+  T* KV = dOs + BM * LDV;                  // stage s: K at KV + s STAGE
   const int bh = blockIdx.x, n_qt = (S + BM - 1) / BM;
   const int q0 = (n_qt - 1 - (int)blockIdx.y) * BM;   // heaviest first
-  const size_t base = (size_t)bh * S * D;
+  const size_t bk = (size_t)bh * S * DK, bv = (size_t)bh * S * DV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int n_kv = (S + BN - 1) / BN;
@@ -502,11 +524,11 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_hi = causal ? min(n_kv, (min(q0 + BM, S) - 1) / BN + 1)
                            : n_kv;
 
-  load_rows<T, D, BM, LD, NTH>(Qs, q + base, q0, S);
-  load_rows<T, D, BM, LD, NTH>(dOs, dout + base, q0, S);
+  load_rows<T, DK, BM, LDK, NTH>(Qs, q + bk, q0, S);
+  load_rows<T, DV, BM, LDV, NTH>(dOs, dout + bv, q0, S);
   if (kv_lo < kv_hi) {
-    load_rows<T, D, BN, LD, NTH>(KV, k + base, kv_lo * BN, S);
-    load_rows<T, D, BN, LD, NTH>(KV + BN * LD, v + base, kv_lo * BN, S);
+    load_rows<T, DK, BN, LDK, NTH>(KV, k + bk, kv_lo * BN, S);
+    load_rows<T, DV, BN, LDV, NTH>(KV + BN * LDK, v + bv, kv_lo * BN, S);
   }
   cp_commit();
 
@@ -524,9 +546,9 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = r0 + i;
     float acc = 0.f;
     if (row < S)
-      for (int d = lane; d < D; d += 32)
-        acc += to_f(dout[base + (size_t)row * D + d]) *
-               to_f(o[base + (size_t)row * D + d]);
+      for (int d = lane; d < DV; d += 32)
+        acc += to_f(dout[bv + (size_t)row * DV + d]) *
+               to_f(o[bv + (size_t)row * DV + d]);
 #pragma unroll
     for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(FULL, acc, off);
     if (lane == 0 && row < S) delta[(size_t)bh * S + row] = acc;
@@ -535,27 +557,27 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const float sl2 = scale * LOG2E;
-  float acc[D / 8][4];
+  float acc[DK / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   for (int it = kv_lo; it < kv_hi; ++it) {
     const int st = (it - kv_lo) & 1;
     if (it + 1 < kv_hi) {
-      T* nxt = KV + (st ^ 1) * 2 * BN * LD;
-      load_rows<T, D, BN, LD, NTH>(nxt, k + base, (it + 1) * BN, S);
-      load_rows<T, D, BN, LD, NTH>(nxt + BN * LD, v + base, (it + 1) * BN,
-                                   S);
+      T* nxt = KV + (st ^ 1) * STAGE;
+      load_rows<T, DK, BN, LDK, NTH>(nxt, k + bk, (it + 1) * BN, S);
+      load_rows<T, DV, BN, LDV, NTH>(nxt + BN * LDK, v + bv, (it + 1) * BN,
+                                     S);
     }
     cp_commit();
     cp_wait<1>();
     __syncthreads();
-    const T* Ks = KV + st * 2 * BN * LD;
-    const T* Vs = Ks + BN * LD;
+    const T* Ks = KV + st * STAGE;
+    const T* Vs = Ks + BN * LDK;
     float s[BN / 8][4], dp[BN / 8][4];
-    score<T, D, LD, BN>(s, Qs + warp * 16 * LD, Ks, lane);
-    score<T, D, LD, BN>(dp, dOs + warp * 16 * LD, Vs, lane);
+    score<T, DK, LDK, BN>(s, Qs + warp * 16 * LDK, Ks, lane);
+    score<T, DV, LDV, BN>(dp, dOs + warp * 16 * LDV, Vs, lane);
     const int k0 = it * BN;
     const bool edge = (causal && k0 + BN - 1 > q0) ||
                       (window && q0 + BM - 1 - k0 >= window) || k0 + BN > S;
@@ -570,31 +592,35 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           p = 0.f;
         s[j][e] = p * (dp[j][e] - dl[e >> 1]);         // dS
       }
-    outer<T, BN, D, LD>(acc, s, Ks, lane);
+    outer<T, BN, DK, LDK>(acc, s, Ks, lane);
     __syncthreads();                       // stage st free for it + 2
   }
   cp_wait<0>();
-  store_rows<T, D, D>(dq + base, acc, r0, 0, S, scale, lane);
+  store_rows<T, DK, DK>(dq + bk, acc, r0, 0, S, scale, lane);
 }
 
-template <typename T, int D, int BM, int BN, int NW, int WD>
+template <typename T, int DK, int DV, int BM, int BN, int NW, int WD>
 __global__ void __launch_bounds__(NW * 32, 1)
 bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const float* __restrict__ delta,
                 const float* __restrict__ lse, const T* __restrict__ dout,
                 T* __restrict__ dk, T* __restrict__ dv, int S, int causal,
                 int window, float scale) {
-  constexpr int WM = NW / WD, LD = tile_ld<T, D>(), NTH = NW * 32;
-  constexpr int BNW = BN / WD, DW = D / WD, LDP = BN + 8;
-  static_assert(BM == 16 * WM && BNW % 16 == 0 && DW % 16 == 0, "tiles");
+  constexpr int WM = NW / WD, NTH = NW * 32;
+  constexpr int LDK = tile_ld<T, DK>(), LDV = tile_ld<T, DV>();
+  constexpr int STAGE = BN * (LDK + LDV);  // a ring stage: Q, then dO
+  constexpr int BNW = BN / WD, DKW = DK / WD, DVW = DV / WD, LDP = BN + 8;
+  static_assert(BM == 16 * WM && BNW % 16 == 0 && DKW % 16 == 0 &&
+                    DVW % 16 == 0,
+                "tiles");
   extern __shared__ __align__(16) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + BM * LD;
-  T* QD = Vs + BM * LD;                    // stage s: Q at QD + 2 s BN LD
-  float* LDl = reinterpret_cast<float*>(QD + 4 * BN * LD);  // [s][lse, D]
+  T* Vs = Ks + BM * LDK;
+  T* QD = Vs + BM * LDV;                   // stage s: Q at QD + s STAGE
+  float* LDl = reinterpret_cast<float*>(QD + 2 * STAGE);    // [s][lse, D]
   float* Ps = LDl + 4 * BN;                // WD > 1: P, then dS, staged
   const int bh = blockIdx.x, k0 = blockIdx.y * BM;     // heaviest first
-  const size_t base = (size_t)bh * S * D;
+  const size_t bk = (size_t)bh * S * DK, bv = (size_t)bh * S * DV;
   const float* lse_bh = lse + (size_t)bh * S;
   const float* dl_bh = delta + (size_t)bh * S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -605,11 +631,11 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_hi =
       window ? min(n_q, (min(k0 + BM, S) + window - 2) / BN + 1) : n_q;
 
-  load_rows<T, D, BM, LD, NTH>(Ks, k + base, k0, S);
-  load_rows<T, D, BM, LD, NTH>(Vs, v + base, k0, S);
+  load_rows<T, DK, BM, LDK, NTH>(Ks, k + bk, k0, S);
+  load_rows<T, DV, BM, LDV, NTH>(Vs, v + bv, k0, S);
   if (q_lo < q_hi) {
-    load_rows<T, D, BN, LD, NTH>(QD, q + base, q_lo * BN, S);
-    load_rows<T, D, BN, LD, NTH>(QD + BN * LD, dout + base, q_lo * BN, S);
+    load_rows<T, DK, BN, LDK, NTH>(QD, q + bk, q_lo * BN, S);
+    load_rows<T, DV, BN, LDV, NTH>(QD + BN * LDK, dout + bv, q_lo * BN, S);
     load_vec<NTH>(LDl, lse_bh, q_lo * BN, BN, S);
     load_vec<NTH>(LDl + BN, dl_bh, q_lo * BN, BN, S);
   }
@@ -617,33 +643,39 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const float sl2 = scale * LOG2E;
   const int r0 = k0 + wm * 16;
-  float gk[DW / 8][4], gv[DW / 8][4];
+  float gk[DKW / 8][4], gv[DVW / 8][4];
 #pragma unroll
-  for (int j = 0; j < DW / 8; ++j)
+  for (int j = 0; j < DKW / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) gk[j][e] = gv[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) gk[j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < DVW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gv[j][e] = 0.f;
   for (int it = q_lo; it < q_hi; ++it) {
     const int st = (it - q_lo) & 1;
     if (it + 1 < q_hi) {
-      T* nxt = QD + (st ^ 1) * 2 * BN * LD;
+      T* nxt = QD + (st ^ 1) * STAGE;
       float* nl = LDl + (st ^ 1) * 2 * BN;
-      load_rows<T, D, BN, LD, NTH>(nxt, q + base, (it + 1) * BN, S);
-      load_rows<T, D, BN, LD, NTH>(nxt + BN * LD, dout + base, (it + 1) * BN,
-                                   S);
+      load_rows<T, DK, BN, LDK, NTH>(nxt, q + bk, (it + 1) * BN, S);
+      load_rows<T, DV, BN, LDV, NTH>(nxt + BN * LDK, dout + bv,
+                                     (it + 1) * BN, S);
       load_vec<NTH>(nl, lse_bh, (it + 1) * BN, BN, S);
       load_vec<NTH>(nl + BN, dl_bh, (it + 1) * BN, BN, S);
     }
     cp_commit();
     cp_wait<1>();
     __syncthreads();
-    const T* Qs = QD + st * 2 * BN * LD;
-    const T* dOs = Qs + BN * LD;
+    const T* Qs = QD + st * STAGE;
+    const T* dOs = Qs + BN * LDK;
     const float* Ls = LDl + st * 2 * BN;
     const float* Dls = Ls + BN;
     // S^T and dP^T for the warp's 16 keys and its BNW queries
     float s[BNW / 8][4], dp[BNW / 8][4];
-    score<T, D, LD, BNW>(s, Ks + wm * 16 * LD, Qs + wd * BNW * LD, lane);
-    score<T, D, LD, BNW>(dp, Vs + wm * 16 * LD, dOs + wd * BNW * LD, lane);
+    score<T, DK, LDK, BNW>(s, Ks + wm * 16 * LDK, Qs + wd * BNW * LDK,
+                           lane);
+    score<T, DV, LDV, BNW>(dp, Vs + wm * 16 * LDV, dOs + wd * BNW * LDV,
+                           lane);
     const int q0 = it * BN;
     const bool edge = (causal && q0 < k0 + BM - 1) ||
                       (window && q0 + BN - 1 - k0 >= window) || q0 + BN > S;
@@ -664,8 +696,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     if constexpr (WD == 1) {
-      outer<T, BN, DW, LD>(gv, s, dOs, lane);
-      outer<T, BN, DW, LD>(gk, dp, Qs, lane);
+      outer<T, BN, DVW, LDV>(gv, s, dOs, lane);
+      outer<T, BN, DKW, LDK>(gk, dp, Qs, lane);
     } else {
       // the warps of a row group exchange their column slices of P, dS
       float* dSs = Ps + BM * LDP;
@@ -696,16 +728,16 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             rows[j][2 * h + 1] = a.y;
           }
         if (x)
-          outer<T, BN, DW, LD>(gk, rows, Qs + wd * DW, lane);
+          outer<T, BN, DKW, LDK>(gk, rows, Qs + wd * DKW, lane);
         else
-          outer<T, BN, DW, LD>(gv, rows, dOs + wd * DW, lane);
+          outer<T, BN, DVW, LDV>(gv, rows, dOs + wd * DVW, lane);
       }
     }
     __syncthreads();                       // stage st free for it + 2
   }
   cp_wait<0>();
-  store_rows<T, D, DW>(dk + base, gk, r0, wd * DW, S, scale, lane);
-  store_rows<T, D, DW>(dv + base, gv, r0, wd * DW, S, 1.f, lane);
+  store_rows<T, DK, DKW>(dk + bk, gk, r0, wd * DKW, S, scale, lane);
+  store_rows<T, DV, DVW>(dv + bv, gv, r0, wd * DVW, S, 1.f, lane);
 }
 
 constexpr int kUnsupported = 100000;   // not a cudaError_t value
@@ -716,15 +748,25 @@ int launch_prep(K kern, size_t smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int D>
+// Shared memory of an instance: `own` rows of the block's own tiles at
+// each width (q in the forward; q and dO in dq; k and v in dkdv) and a
+// ring of two stages of BN rows at both widths, in T.
+template <typename T, int DK, int DV>
+constexpr size_t tile_bytes(int own_k, int own_v, int bn) {
+  return ((size_t)own_k * tile_ld<T, DK>() + (size_t)own_v * tile_ld<T, DV>() +
+          2 * (size_t)bn * (tile_ld<T, DK>() + tile_ld<T, DV>())) *
+         sizeof(T);
+}
+
+template <typename T, int DK, int DV>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
         int bh, int S, int causal, int window, float scale,
         cudaStream_t st) {
-  constexpr Tiles c = attn_tiles<T, D, FWD>();
+  constexpr Tiles c = attn_tiles<T, DK, DV, FWD>();
   const size_t smem =
-      (size_t)(c.bm + 4 * c.bn) * tile_ld<T, D>() * sizeof(T) +
+      tile_bytes<T, DK, DV>(c.bm, 0, c.bn) +
       (c.wd > 1 ? (c.bm * (c.bn + 8) + 2 * c.bm) * sizeof(float) : 0);
-  auto kern = fwd_kernel<T, D, c.bm, c.bn, c.nw, c.wd>;
+  auto kern = fwd_kernel<T, DK, DV, c.bm, c.bn, c.nw, c.wd>;
   if (int rc = launch_prep(kern, smem)) return rc;
   dim3 grid(bh, (S + c.bm - 1) / c.bm);
   kern<<<grid, c.nw * 32, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
@@ -732,16 +774,15 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 int dkdv(const void* q, const void* k, const void* v, const float* delta,
          const float* lse, const void* dout, void* dk, void* dv, int bh,
          int S, int causal, int window, float scale, cudaStream_t st) {
-  constexpr Tiles c = attn_tiles<T, D, DKDV>();
+  constexpr Tiles c = attn_tiles<T, DK, DV, DKDV>();
   const size_t smem =
-      (size_t)(2 * c.bm + 4 * c.bn) * tile_ld<T, D>() * sizeof(T) +
-      4 * c.bn * sizeof(float) +
+      tile_bytes<T, DK, DV>(c.bm, c.bm, c.bn) + 4 * c.bn * sizeof(float) +
       (c.wd > 1 ? 2 * c.bm * (c.bn + 8) * sizeof(float) : 0);
-  auto kern = bwd_dkdv_kernel<T, D, c.bm, c.bn, c.nw, c.wd>;
+  auto kern = bwd_dkdv_kernel<T, DK, DV, c.bm, c.bn, c.nw, c.wd>;
   if (int rc = launch_prep(kern, smem)) return rc;
   dim3 grid(bh, (S + c.bm - 1) / c.bm);
   kern<<<grid, c.nw * 32, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
@@ -750,15 +791,14 @@ int dkdv(const void* q, const void* k, const void* v, const float* delta,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 int dq(const void* q, const void* k, const void* v, const void* o,
        const float* lse, const void* dout, void* dqp, float* delta, int bh,
        int S, int causal, int window, float scale, cudaStream_t st) {
-  constexpr Tiles c = attn_tiles<T, D, DQ>();
+  constexpr Tiles c = attn_tiles<T, DK, DV, DQ>();
   static_assert(c.wd == 1, "dq: a warp owns all of its rows' columns");
-  const size_t smem =
-      (size_t)(2 * c.bm + 4 * c.bn) * tile_ld<T, D>() * sizeof(T);
-  auto kern = bwd_dq_kernel<T, D, c.bm, c.bn, c.nw>;
+  const size_t smem = tile_bytes<T, DK, DV>(c.bm, c.bm, c.bn);
+  auto kern = bwd_dq_kernel<T, DK, DV, c.bm, c.bn, c.nw>;
   if (int rc = launch_prep(kern, smem)) return rc;
   dim3 grid(bh, (S + c.bm - 1) / c.bm);
   kern<<<grid, c.nw * 32, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
@@ -768,32 +808,39 @@ int dq(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16.
+// The instances, by (q.k width, v width) and dtype (0 = float32, 1 =
+// bfloat16): one width for both in (16, 32, 64, 128, 256), or (192, 128).
 #define DISPATCH(FN, ...)                                                 \
-  switch (d * 2 + dtype) {                                                \
-    case 32: return FN<float, 16>(__VA_ARGS__);                           \
-    case 33: return FN<__nv_bfloat16, 16>(__VA_ARGS__);                   \
-    case 64: return FN<float, 32>(__VA_ARGS__);                           \
-    case 65: return FN<__nv_bfloat16, 32>(__VA_ARGS__);                   \
-    case 128: return FN<float, 64>(__VA_ARGS__);                          \
-    case 129: return FN<__nv_bfloat16, 64>(__VA_ARGS__);                  \
-    case 256: return FN<float, 128>(__VA_ARGS__);                         \
-    case 257: return FN<__nv_bfloat16, 128>(__VA_ARGS__);                 \
-    case 512: return FN<float, 256>(__VA_ARGS__);                         \
-    case 513: return FN<__nv_bfloat16, 256>(__VA_ARGS__);                 \
-    default: return kUnsupported;                                         \
-  }
+  if (dk == dv) {                                                         \
+    switch (dk * 2 + dtype) {                                             \
+      case 32: return FN<float, 16, 16>(__VA_ARGS__);                     \
+      case 33: return FN<__nv_bfloat16, 16, 16>(__VA_ARGS__);             \
+      case 64: return FN<float, 32, 32>(__VA_ARGS__);                     \
+      case 65: return FN<__nv_bfloat16, 32, 32>(__VA_ARGS__);             \
+      case 128: return FN<float, 64, 64>(__VA_ARGS__);                    \
+      case 129: return FN<__nv_bfloat16, 64, 64>(__VA_ARGS__);            \
+      case 256: return FN<float, 128, 128>(__VA_ARGS__);                  \
+      case 257: return FN<__nv_bfloat16, 128, 128>(__VA_ARGS__);          \
+      case 512: return FN<float, 256, 256>(__VA_ARGS__);                  \
+      case 513: return FN<__nv_bfloat16, 256, 256>(__VA_ARGS__);          \
+    }                                                                     \
+  } else if (dk == 192 && dv == 128) {                                    \
+    return dtype ? FN<__nv_bfloat16, 192, 128>(__VA_ARGS__)               \
+                 : FN<float, 192, 128>(__VA_ARGS__);                      \
+  }                                                                       \
+  return kUnsupported;
 
 }  // namespace
 
 extern "C" {
 
 // Each returns cudaGetLastError() after the launch (0 = launched), or
-// 100000 for a head dim / dtype / window with no instance. window = 0
-// means no window.
+// 100000 for a width pair (dk, dv) / dtype / window with no instance.
+// dk is the width of q and k (and dq, dk), dv that of v and o (and dO,
+// dv). window = 0 means no window.
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
-              void* lse, int bh, int s, int d, int dtype, int causal,
-              int window, float scale, void* stream) {
+              void* lse, int bh, int s, int dk, int dv, int dtype,
+              int causal, int window, float scale, void* stream) {
   if ((dtype != 0 && dtype != 1) || window < 0) return kUnsupported;
   DISPATCH(fwd, q, k, v, o, (float*)lse, bh, s, causal, window, scale,
            (cudaStream_t)stream)
@@ -802,8 +849,9 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
 // Run flash_bwd_dq first: it writes delta, which flash_bwd_dkdv reads.
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* o, const void* lse, const void* dout,
-                 void* dqp, void* delta, int bh, int s, int d, int dtype,
-                 int causal, int window, float scale, void* stream) {
+                 void* dqp, void* delta, int bh, int s, int dk, int dv,
+                 int dtype, int causal, int window, float scale,
+                 void* stream) {
   if ((dtype != 0 && dtype != 1) || window < 0) return kUnsupported;
   DISPATCH(dq, q, k, v, o, (const float*)lse, dout, dqp, (float*)delta, bh,
            s, causal, window, scale, (cudaStream_t)stream)
@@ -811,11 +859,12 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
 
 int flash_bwd_dkdv(const void* q, const void* k, const void* v,
                    const void* delta, const void* lse, const void* dout,
-                   void* dk, void* dv, int bh, int s, int d, int dtype,
-                   int causal, int window, float scale, void* stream) {
+                   void* dkp, void* dvp, int bh, int s, int dk, int dv,
+                   int dtype, int causal, int window, float scale,
+                   void* stream) {
   if ((dtype != 0 && dtype != 1) || window < 0) return kUnsupported;
-  DISPATCH(dkdv, q, k, v, (const float*)delta, (const float*)lse, dout, dk,
-           dv, bh, s, causal, window, scale, (cudaStream_t)stream)
+  DISPATCH(dkdv, q, k, v, (const float*)delta, (const float*)lse, dout, dkp,
+           dvp, bh, s, causal, window, scale, (cudaStream_t)stream)
 }
 
 }  // extern "C"

@@ -16,7 +16,9 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256)
+# (q.k width, v width) pairs with an instance: one width for both, or
+# multi-head latent attention's 128 + 64 rotary beside its v width 128
+WIDTHS = tuple((d, d) for d in (16, 32, 64, 128, 256)) + ((192, 128),)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches by name. Each wrapper adds one where it launches its
@@ -29,21 +31,24 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check(*ts) -> None:
-    q = ts[0]
+def _check(q, k, v, *vs) -> None:
+    """q and k (BH, S, dk), v and the other tensors `vs` (o, dO)
+    (BH, S, dv), one dtype and device, (dk, dv) in WIDTHS."""
     if q.dim() != 3:
         raise ValueError(f"expected (BH, S, d), got {tuple(q.shape)}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
+    dk, dv = q.shape[-1], v.shape[-1]
+    if (dk, dv) not in WIDTHS:
+        raise ValueError(f"head dims (q.k {dk}, v {dv}) not in {WIDTHS}")
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"dtype {q.dtype} not in float32/bfloat16")
-    for t in ts[1:]:
-        if t.shape != q.shape or t.dtype != q.dtype or \
+    for t, d in [(k, dk)] + [(t, dv) for t in (v,) + vs]:
+        if t.shape != q.shape[:-1] + (d,) or t.dtype != q.dtype or \
                 t.device != q.device:
-            raise ValueError("q, k, v (and o, dO) must share shape, dtype "
-                             f"and device; got {tuple(t.shape)} {t.dtype} "
-                             f"{t.device} against {tuple(q.shape)} "
-                             f"{q.dtype} {q.device}")
+            raise ValueError("q and k (BH, S, dk), v (and o, dO) (BH, S, "
+                             "dv) must share dtype and device; got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device} "
+                             f"against q {tuple(q.shape)} {q.dtype} "
+                             f"{q.device}")
 
 
 def _device_kind(t) -> str:
@@ -126,12 +131,13 @@ def flash_fwd(q, k, v, causal: bool, scale: float, window: int = 0):
     if _device_kind(q) == "cpu":
         return attention_fwd_ref(q, k, v, causal, scale, window)
     q, k, v = (_aligned16(t.contiguous()) for t in (q, k, v))
-    bh, s, d = q.shape
-    o = torch.empty_like(q)
+    bh, s, dk = q.shape
+    o = torch.empty_like(v)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           o.data_ptr(), lse.data_ptr(), bh, s, d, _DTYPE_CODE[q.dtype],
-           int(causal), int(window), float(scale), device=q.device)
+           o.data_ptr(), lse.data_ptr(), bh, s, dk, v.shape[-1],
+           _DTYPE_CODE[q.dtype], int(causal), int(window), float(scale),
+           device=q.device)
     return o, lse
 
 
@@ -148,11 +154,12 @@ def flash_bwd(q, k, v, o, lse, do, causal: bool, scale: float,
                                    window), delta)
     q, k, v, o, do = (_aligned16(t.contiguous()) for t in (q, k, v, o, do))
     lse = lse.contiguous()
-    bh, s, d = q.shape
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    bh, s, _ = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
     delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
-    common = (bh, s, d, _DTYPE_CODE[q.dtype], int(causal), int(window),
-              float(scale))
+    common = (bh, s, q.shape[-1], v.shape[-1], _DTYPE_CODE[q.dtype],
+              int(causal), int(window), float(scale))
     launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
            o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
            delta.data_ptr(), *common, device=q.device)
@@ -183,7 +190,8 @@ class FlashAttentionFn(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None,
                     window: int = 0):
-    """q,k,v: (BH, S, d). Returns (BH, S, d) in q's dtype. window > 0
-    limits query q to keys k with q - k < window."""
+    """q, k: (BH, S, dk), v: (BH, S, dv). Returns (BH, S, dv) in q's
+    dtype; the default scale is dk^-0.5. window > 0 limits query q to
+    keys k with q - k < window."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     return FlashAttentionFn.apply(q, k, v, causal, scale, window)

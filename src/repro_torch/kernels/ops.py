@@ -11,14 +11,15 @@ from repro_torch.kernels import rglru_scan as _rg
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
-    """(B, H, S, K) attention through the CUDA kernels (plain version for
-    CPU tensors); window > 0 limits each query to the `window` latest
+    """q, k (B, H, S, K) and v (B, H, S, Kv) -> (B, H, S, Kv) attention
+    through the CUDA kernels (plain version for CPU tensors) at the
+    scale K^-0.5; window > 0 limits each query to the `window` latest
     keys. Differentiable."""
-    b, h, s, kd = q.shape
+    b, h, s, _ = q.shape
     fold = lambda t: t.reshape(b * h, t.shape[2], t.shape[3])
     out = _fa.flash_attention(fold(q), fold(k), fold(v), causal=causal,
                               window=window)
-    return out.reshape(b, h, s, kd)
+    return out.reshape(b, h, s, v.shape[-1])
 
 
 def grouped_matmul(x, w):

@@ -4,7 +4,7 @@ which sends full-sequence attention through the CUDA kernels.
 
 Layout conventions
   q:    (B, S, NKV, G, K)   NKV = physical kv heads, G = q-per-kv
-  k/v:  (B, T, NKV, K)
+  k/v:  (B, T, NKV, K), v's last axis Kv where it differs (MLA)
 All attention math runs in f32 and casts back to the input dtype.
 """
 from __future__ import annotations
@@ -65,12 +65,14 @@ def attend(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     `impl` names: the kernel is the port's only attention path, the
     sliding window (`window` > 0, `local_attn`) included.
 
-    q_pos and k_pos must be 0..S-1 in every row (the training and
-    prefill positions); the kernel masks by index. q and kv of different
-    lengths (KV caches, decode) and a non-default scale are not ported
-    yet."""
+    q and k share the q.k width K; v may have its own width Kv (MLA's
+    128 against K = 192), which the output takes. q_pos and k_pos must
+    be 0..S-1 in every row (the training and prefill positions); the
+    kernel masks by index. q and kv of different lengths (KV caches,
+    decode) and a scale other than K^-0.5 (MLA's explicit scale is
+    that one) are not ported yet."""
     B, S, N, G, K = q.shape
-    T = k.shape[1]
+    T, Kv = k.shape[1], v.shape[-1]
     if S != T or scale not in (None, K ** -0.5):
         raise NotImplementedError(
             "attend supports full-sequence attention at the default "
@@ -79,7 +81,7 @@ def attend(q, k, v, q_pos, k_pos, *, causal=True, window=0,
         raise ValueError(f"unknown attention impl {impl!r}")
     qh = q.permute(0, 2, 3, 1, 4).reshape(B, N * G, S, K)
     grp = lambda t: t.permute(0, 2, 1, 3)[:, :, None] \
-        .expand(B, N, G, T, K).reshape(B, N * G, T, K)
+        .expand(B, N, G, T, t.shape[-1]).reshape(B, N * G, T, t.shape[-1])
     out = ops.flash_attention(qh, grp(k), grp(v), causal=causal,
                               window=window)
-    return out.reshape(B, N, G, S, K).permute(0, 3, 1, 2, 4)
+    return out.reshape(B, N, G, S, Kv).permute(0, 3, 1, 2, 4)

@@ -2,6 +2,8 @@
 - `attn`, `local_attn` and `attn_moe`: RMSNorm -> QKV + RoPE -> causal
   attention (sliding-window for `local_attn`) -> output projection, then
   RMSNorm -> SwiGLU MLP, or the MoE FFN for `attn_moe` (models/moe.py);
+- `mla_moe`: RMSNorm -> multi-head latent attention (models/mla.py),
+  then RMSNorm -> the MoE FFN;
 - `rglru`: RMSNorm -> RG-LRU temporal mixing (models/rglru.py), then
   RMSNorm -> SwiGLU MLP;
 - `mlstm` and `slstm`: RMSNorm -> the xLSTM cell with its own up and
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as att
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
@@ -23,7 +26,6 @@ from repro_torch.models.tp_padding import HeadPlan, plan_heads
 ATTN_TYPES = ("attn", "local_attn", "attn_moe")
 # where each block type the port lacks is queued (ROADMAP.md)
 _NOT_PORTED = {
-    "mla_moe": "ROADMAP Queue 1 item 10 (DeepSeek-V2-Lite)",
     "attn_cross": "ROADMAP Queue 1 item 10 (Whisper)",
     "enc_attn": "ROADMAP Queue 1 item 10 (Whisper)",
 }
@@ -36,7 +38,7 @@ def _refuse(btype: str):
     if btype in _NOT_PORTED:
         raise NotImplementedError(f"block type {btype!r} is not ported "
                                   f"yet: {_NOT_PORTED[btype]}")
-    if btype not in ATTN_TYPES + ("rglru",) + tuple(XLSTM):
+    if btype not in ATTN_TYPES + ("mla_moe", "rglru") + tuple(XLSTM):
         raise ValueError(btype)
 
 
@@ -143,6 +145,11 @@ def init_block(gen, btype: str, cfg: ArchConfig, tp: int, dtype,
     if btype in XLSTM:
         return {"ln1": ones(),
                 "cell": XLSTM[btype][0](gen, cfg, dtype, device)}
+    if btype == "mla_moe":
+        return {"ln1": ones(),
+                "mla": mla_mod.init_mla(gen, cfg, dtype, device),
+                "ln2": ones(),
+                "moe": moe_mod.init_moe(gen, cfg, tp, dtype, device)}
     if btype == "rglru":
         return {"ln1": ones(),
                 "rnn": rglru_mod.init_rglru(gen, cfg, dtype, device),
@@ -166,6 +173,13 @@ def apply_block(btype: str, p: dict, x, cfg: ArchConfig, tp: int, *,
         h, _ = XLSTM[btype][1](p["cell"], rmsnorm(x, p["ln1"], cfg.norm_eps),
                                cfg)
         return x + h, aux
+    if btype == "mla_moe":
+        h = mla_mod.apply_mla(p["mla"], rmsnorm(x, p["ln1"], cfg.norm_eps),
+                              positions, cfg, impl=impl)
+        x = x + h
+        y, aux = moe_mod.apply_moe(p["moe"],
+                                   rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
+        return x + y, aux
     if btype == "rglru":
         h, _ = rglru_mod.apply_rglru(p["rnn"],
                                      rmsnorm(x, p["ln1"], cfg.norm_eps), cfg)
