@@ -97,11 +97,30 @@ Phases (each failure exits non-zero):
      Per run it prints the wall seconds the card took (measured), the
      seconds of it in checkpoint ticks, the simulated downtime, overlap
      and train lanes, the peak device memory and the launches;
- 10. slice, DeepSeek-V2-Lite (run last): PipelineEngine trains it at full
+ 10. slice, DeepSeek-V2-Lite: PipelineEngine trains it at full
      width (d_model 2048, 16 heads of multi-head latent attention:
      kv_lora_rank 512, q.k 128 + 64 rotary, v 128; 64 experts top-6 plus
      2 shared, d_expert 1408; vocab 102400, untied head), depth cut to 2
-     layers, with phase 5's engine arguments and bf16 layer weights.
+     layers, with phase 5's engine arguments and bf16 layer weights;
+ 11. serve (run last): make_serve_step decodes from empty caches, f32
+     weights from a seed: StableLM-2-1.6B at full width and depth (24
+     layers, d_model 2048, 32 x 64 heads, vocab 100352) for 64 tokens
+     of 8 sequences, caches of 2048 slots; RecurrentGemma-2B at
+     full width cut to one period (rglru, rglru, local_attn) past its
+     window of 2048 (the ring cache wraps); xLSTM-350M at full width and
+     depth (the carried mLSTM and sLSTM states); DeepSeek-V2-Lite at full
+     width cut to 2 layers (MLA's absorbed decode, decode_moe at E 64).
+     Per model: the first decode runs under set_sync_debug_mode("error")
+     (a host sync fails it), a second from slot buffers filled with NaN
+     must equal it bit for bit (same seed, and no unwritten slot read),
+     then make_prefill_step on the same tokens (the path's forward
+     kernels); decode against prefill within SERVE_TOL, except
+     DeepSeek's, where apply_moe drops tokens over capacity and
+     decode_moe never does: its decode is held against the CPU's at the
+     reduced config instead (SERVE_REF_TOL). StableLM also decodes a
+     third time plainly (bitwise) and once with a bf16 cache (reported).
+     Printed: ms per token, tokens/s (B * N over the decode loop's wall
+     time between synchronizations) and the peak device memory.
 Each engine slice runs setup, record_iteration and 3 x train_iteration
 twice with the same seed; the launcher slices run the launcher twice.
 Losses must be bitwise equal across the two runs, and the GPT, MoE and
@@ -207,6 +226,29 @@ XL_STEPS, XL_SEQ = 2, 2048
 # its mLSTM cells: batch 4 x 4 heads, seq XL_SEQ, head dim 512, chunk
 # 64, f32 q, k, v and log gates
 XL_MLSTM = dict(bh=16, s=XL_SEQ, k=512, chunk=64, dtype=torch.float32)
+# phase 11, serving: per model (batch, decoded tokens, cache slots) and
+# the depth it runs at (None: the config's). RecurrentGemma-2B decodes
+# 64 tokens past its local attention's window of 2048. Decode is
+# host-bound on that machine (about 150 torch ops a layer a token, at
+# 2.5-4.6 ms a layer), so the tokens are cut to keep the phase near 60 s
+SERVE = {"stablelm-1.6b": (8, 64, 2048, None),
+         "recurrentgemma-2b": (2, 2112, 2112, 3),
+         "xlstm-350m": (4, 64, 64, None),
+         "deepseek-v2-lite-16b": (8, 64, 2048, 2)}
+# decode (the plain dense attention over the cache, products at B rows)
+# against the prefill forward (the kernels, products at B x N rows) on
+# the card, f32 weights and cache: max |decode - prefill| over max(1,
+# max |prefill|). Both are f32, but every product sums in another order
+# (other cuBLAS kernels at B and B x N rows; the attention kernel's
+# 3xTF32 against the plain f32 softmax; the mLSTM's chunks of 64 against
+# decode's chunks of 1), compounded over up to 24 layers; the reduced
+# configs on the CPU agree to 5.5e-07. A wrong slot, position or mask
+# moves the logits by O(0.1)
+SERVE_TOL = 1e-3
+# the reduced DeepSeek-V2-Lite (MLA's full widths) decoding on the card
+# against the CPU: logits, f32 sums in other orders over two layers (the
+# engine's bound in check_reference)
+SERVE_REF_TOL = 1e-4
 # phase 9: the campaign at GPT-medium with phase 4's engine arguments,
 # and the scenarios it drives after the reference run
 CAMPAIGN_CFG = dict(arch="gpt-medium", dp=2, pp=2, global_batch=8,
@@ -1731,6 +1773,186 @@ def drive_launcher(mods, cfg, argv, label, busy_groups=()):
     return launches
 
 
+def kv_buffers(cache) -> list:
+    """A decode cache's slot buffers (KV caches, MLA's latent cache):
+    what a step may read only where written. Recurrent states are read
+    whole and are not among them."""
+    if isinstance(cache, dict):
+        if "pos" in cache:
+            return [t for k, t in cache.items() if k != "pos"]
+        return [t for v in cache.values() for t in kv_buffers(v)]
+    if isinstance(cache, (tuple, list)):
+        return [t for v in cache for t in kv_buffers(v)]
+    return []
+
+
+@contextlib.contextmanager
+def sync_is_error(on: bool):
+    """Within, with `on`: any host sync raises
+    (torch.cuda.set_sync_debug_mode("error"))."""
+    if on:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        if on:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def decode_run(cfg, params, tokens, max_len: int, cache_dtype,
+               nan_fill=False, sync_check=False):
+    """`tokens` (B, N) decoded one at a time on the card through
+    make_serve_step from an empty cache of `max_len` slots in
+    `cache_dtype` (its slot buffers filled with NaN with `nan_fill`), the
+    loop under sync debug "error" with `sync_check`. Returns (logits (B,
+    N, V), the loop's wall seconds between synchronizations)."""
+    from repro_torch.models import backbone
+    from repro_torch.train import step as step_mod
+    serve = step_mod.make_serve_step(cfg)
+    cache = backbone.init_cache(cfg, tokens.shape[0], max_len,
+                                dtype=cache_dtype)
+    if nan_fill:
+        for t in kv_buffers(cache):
+            t.fill_(float("nan"))
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sync_is_error(sync_check):
+        for i in range(tokens.shape[1]):
+            logits, cache = serve(params, cache, tokens[:, i:i + 1])
+            outs.append(logits)
+    torch.cuda.synchronize()
+    return torch.cat(outs, 1), time.perf_counter() - t0
+
+
+def serve_expected_launches(cfg):
+    """Launches of one prefill forward without gradients (each layer
+    once; decode launches none): an attention layer's flash_fwd, an
+    rglru layer's rglru_fwd, an mlstm layer's mlstm_fwd, and three
+    gmm_fwd products per MoE layer."""
+    want = {n: 0 for n in FLASH + GMM + SCAN + MLSTM}
+    for t in cfg.layer_types():
+        if t in ("attn", "attn_moe", "mla_moe"):
+            want["flash_fwd"] += 1
+        if t in ("attn_moe", "mla_moe"):
+            want["gmm_fwd"] += 3
+        for n in LAYER_KERNELS.get(t, ((), ()))[0]:
+            want[n] += 1
+    return want
+
+
+def check_serve_reference():
+    """The reduced DeepSeek-V2-Lite at MLA's full widths decoding 8
+    tokens of 2 sequences on the card against the CPU: same weights,
+    f32 cache; logits within SERVE_REF_TOL."""
+    from repro_torch.models import backbone
+    from repro_torch.train import step as step_mod
+    from repro_torch.tree import tree_map
+    cfg = ds_reduced()
+    gen = torch.Generator().manual_seed(7)
+    params = backbone.init_params(cfg, gen, dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        serve = step_mod.make_serve_step(cfg, device=dev)
+        p = tree_map(lambda t: t.to(dev), params)
+        cache = backbone.init_cache(cfg, 2, 12, dtype=torch.float32,
+                                    device=dev)
+        outs = []
+        for i in range(tokens.shape[1]):
+            lg, cache = serve(p, cache, tokens[:, i:i + 1])
+            outs.append(lg.cpu())
+        out[dev] = torch.cat(outs, 1)
+    diff = float((out["cuda"] - out["cpu"]).abs().max())
+    print(f"  {cfg.name} reduced, MLA's full widths: decode logits card "
+          f"against CPU max diff {diff:.3e} (tol {SERVE_REF_TOL:g})",
+          flush=True)
+    if not (torch.isfinite(out["cuda"]).all() and diff <= SERVE_REF_TOL):
+        raise SystemExit("card decode disagrees with the CPU at the reduced "
+                         "DeepSeek-V2-Lite")
+
+
+def drive_serve(mods, cfg, card: str):
+    """One model's serving path on the card (see phase 11): f32 weights
+    and tokens from seed 0; returns the kernel launches over the path,
+    zeroed just before it and read just after."""
+    from repro_torch.models import backbone
+    from repro_torch.train import step as step_mod
+    batch, n, max_len, layers = SERVE[cfg.name]
+    cfg = cfg.replace(num_layers=layers or cfg.num_layers)
+    f32 = torch.float32
+    print(f"[serve] {cfg.name}, {cfg.num_layers} layers, batch {batch}, "
+          f"{n} tokens, caches of {max_len} slots, f32 weights", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods:
+        mod.reset_launches()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = backbone.init_params(cfg, gen, dtype=f32, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (batch, n), generator=gen,
+                           device="cuda")
+
+    def report(what, wall):
+        print(f"  decode, {what}: {wall:.4f} s, {wall / n * 1e3:.4f} ms "
+              f"per token, {batch * n / wall:.1f} tokens/s [{card}]",
+              flush=True)
+
+    dec, wall = decode_run(cfg, params, tokens, max_len, f32,
+                           sync_check=True)
+    report("f32 cache, no host sync (sync debug mode error)", wall)
+    runs = [("slot buffers NaN-filled", dict(nan_fill=True))]
+    if cfg.name == "stablelm-1.6b":
+        runs.append(("again, same seed", {}))
+    for what, kw in runs:
+        again, wall = decode_run(cfg, params, tokens, max_len, f32, **kw)
+        report(what, wall)
+        same = torch.equal(again, dec)
+        print(f"    bitwise equal to the first run: {same}", flush=True)
+        if not same:
+            raise SystemExit(f"{cfg.name}: decode runs disagree ({what})")
+        del again
+    print(f"  decode peak max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B [{card}]", flush=True)
+    if not (dec.shape == (batch, n, cfg.vocab_size)
+            and torch.isfinite(dec).all()):
+        raise SystemExit(f"{cfg.name}: decode logits {tuple(dec.shape)} "
+                         "not finite or not (B, N, V)")
+    prefill = step_mod.make_prefill_step(cfg, step_mod.RunCfg(
+        param_dtype=f32))
+    pre = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    scale = max(1.0, float(pre.abs().max()))
+    err = float((dec - pre).abs().max()) / scale
+    launches = {n_: c for mod in mods for n_, c in mod.LAUNCHES.items()}
+    gated = cfg.name != "deepseek-v2-lite-16b"
+    print(f"  decode against prefill: max |diff| / max(1, max |prefill|) "
+          f"{err:.3e} (max |prefill| {scale:.4f}; "
+          + (f"tol {SERVE_TOL:g})" if gated else "not gated: apply_moe "
+             "drops tokens over capacity, decode_moe never does)"),
+          flush=True)
+    if gated and not err <= SERVE_TOL:
+        raise SystemExit(f"{cfg.name}: decode disagrees with prefill")
+    if cfg.name == "stablelm-1.6b":
+        del dec
+        dec16, wall = decode_run(cfg, params, tokens, max_len,
+                                 torch.bfloat16)
+        report("bf16 cache", wall)
+        err16 = float((dec16 - pre).abs().max()) / scale
+        print(f"    against prefill {err16:.3e} (reported, not gated)",
+              flush=True)
+        if not torch.isfinite(dec16).all():
+            raise SystemExit("bf16-cache decode not finite")
+    want = serve_expected_launches(cfg)
+    print(f"  launches over the path: {launches} (want {want})", flush=True)
+    if launches != want:
+        raise SystemExit(f"{cfg.name}: serve launches {launches}, want "
+                         f"{want}")
+    print(f"  path peak max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B [{card}]", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1738,7 +1960,8 @@ def main() -> int:
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import (deepseek_v2_lite_16b, qwen2_moe_a2_7b,
-                                     recurrentgemma_2b, xlstm_350m)
+                                     recurrentgemma_2b, stablelm_1_6b,
+                                     xlstm_350m)
     from repro_torch.configs.gpt import GPT_MEDIUM
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
@@ -1835,12 +2058,23 @@ def main() -> int:
                            f"weights", dsc, 1, 4, moe=True,
                            first_loss=DS_FIRST_LOSS,
                            param_dtype=torch.bfloat16)
+    # phase 11: serving
+    print("[serve] card against the CPU", flush=True)
+    check_serve_reference()
+    t0 = time.perf_counter()
+    serve_launches = {
+        c.name: drive_serve(mods, c, card)
+        for c in (stablelm_1_6b.CONFIG, recurrentgemma_2b.CONFIG,
+                  xlstm_350m.CONFIG, deepseek_v2_lite_16b.CONFIG)}
+    print(f"[serve] phase 11 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     names = FLASH + GMM + SCAN + MLSTM
     by_path = {n: {gpt.name: launches[n],
                    f"{gpt.name} migration": mig_launches[n],
                    f"{gpt.name} campaign": camp_launches[n],
                    qwen.name: moe_launches[n], rgc.name: rg_launches[n],
-                   xl.name: xl_launches[n], dsc.name: ds_launches[n]}
+                   xl.name: xl_launches[n], dsc.name: ds_launches[n],
+                   **{f"{k} serve": v[n] for k, v in serve_launches.items()}}
                for n in names}
 
     print("kernels: " + ", ".join(f"{n} ok" for n in names))

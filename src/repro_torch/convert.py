@@ -1,4 +1,4 @@
-"""Parameter trees between numpy and the port.
+"""Parameter and cache trees between numpy and the port.
 
 `params_from_numpy` takes the JAX package's parameters as numpy arrays
 (for example `jax.tree.map(np.asarray, backbone.init_params(...))`) and
@@ -6,7 +6,8 @@ returns the port's tree of tensors; `params_to_numpy` is the reverse.
 Both keep the tree's shape and bytes, so a run of the port and a run of
 the reference can start from the very same weights. Every leaf keeps
 its own dtype (RecurrentGemma's f32 `lam`, `b_a` and `b_x` among bf16
-weights), and empty subtrees (a `None` period position when there are
+weights; a decode cache's int32 `pos` among bf16 or f32 buffers and f32
+recurrent states), and empty subtrees (a `None` period position when there are
 fewer layers than one period, an empty `tail`) pass through as they
 are.
 """

@@ -105,7 +105,7 @@ def mlstm_fwd_ref(q, k, v, log_i, log_f, chunk: int):
     """(h in q's dtype, aux) from the zero state, with aux = (C (BH, nc,
     K, K), n (BH, nc, K), m (BH, nc)) at each chunk's start and m_loc,
     den (BH, S), all f32."""
-    h, aux = mlstm_chunks(q, k, v, log_i, log_f, chunk)
+    h, aux, _ = mlstm_chunks(q, k, v, log_i, log_f, chunk)
     return h.to(q.dtype), aux
 
 

@@ -42,23 +42,27 @@ def tril_ones(n: int, device) -> torch.Tensor:
     return torch.ones(n, n, device=device).tril()
 
 
-def mlstm_chunks(q, k, v, log_i, log_f, chunk: int):
+def mlstm_chunks(q, k, v, log_i, log_f, chunk: int, state=None):
     """The stabilized chunkwise mLSTM over (N, S, K) / (N, S) in f32,
-    S a multiple of `chunk`, from the zero state (C = 0, n = 0, m =
-    -1e30).
+    S a multiple of `chunk`, from `state` = (C (N, K, K), n (N, K), m
+    (N,)), or from the zero state (C = 0, n = 0, m = -1e30) if None.
 
-    Returns (h (N, S, K) f32, and the per-chunk values a backward needs:
-    C (N, nc, K, K), n (N, nc, K) and m (N, nc) at the start of each
-    chunk, m_loc and den (N, S)).
+    Returns (h (N, S, K) f32, the per-chunk values a backward needs: C
+    (N, nc, K, K), n (N, nc, K) and m (N, nc) at the start of each
+    chunk, m_loc and den (N, S); and the state (C, n, m) after the last
+    step).
     Inclusive cumulative sums are products with a lower-triangular ones
     matrix: torch.cumsum on a float CUDA tensor is refused in
     deterministic mode."""
     nb, s, kd = q.shape
     scale = kd ** -0.5
     dev = q.device
-    C = torch.zeros(nb, kd, kd, device=dev)
-    n = torch.zeros(nb, kd, device=dev)
-    m = torch.full((nb,), NEG, device=dev)
+    if state is None:
+        C = torch.zeros(nb, kd, kd, device=dev)
+        n = torch.zeros(nb, kd, device=dev)
+        m = torch.full((nb,), NEG, device=dev)
+    else:
+        C, n, m = (t.float() for t in state)
     tri = tril_ones(chunk, dev)
     mask = tri.bool()
     hs, Cs, ns, ms, mlocs, dens = [], [], [], [], [], []
@@ -95,14 +99,14 @@ def mlstm_chunks(q, k, v, log_i, log_f, chunk: int):
         m = m_new
     aux = (torch.stack(Cs, 1), torch.stack(ns, 1), torch.stack(ms, 1),
            torch.cat(mlocs, 1), torch.cat(dens, 1))
-    return torch.cat(hs, 1), aux
+    return torch.cat(hs, 1), aux, (C, n, m)
 
 
 def mlstm_chunkwise(q, k, v, log_i, log_f, chunk=64):
     """Chunkwise stabilized mLSTM from the zero state. q, k, v: (BH, S,
     K); log_i, log_f: (BH, S); S a multiple of chunk. h (BH, S, K) in
     q's dtype (f32 arithmetic)."""
-    h, _ = mlstm_chunks(q, k, v, log_i, log_f, chunk)
+    h, _, _ = mlstm_chunks(q, k, v, log_i, log_f, chunk)
     return h.to(q.dtype)
 
 

@@ -1,6 +1,7 @@
 """Attention primitives (counterpart of `repro/models/attention.py`):
-RoPE, the position mask, the plain dense attention, and `attend`,
-which sends full-sequence attention through the CUDA kernels.
+RoPE, the position mask, the plain dense attention, `attend`, which
+sends full-sequence attention through the CUDA kernels, and the KV
+caches (full and ring buffer) with single-token `decode_attend`.
 
 Layout conventions
   q:    (B, S, NKV, G, K)   NKV = physical kv heads, G = q-per-kv
@@ -69,14 +70,14 @@ def attend(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     128 against K = 192), which the output takes. q_pos and k_pos must
     be 0..S-1 in every row (the training and prefill positions); the
     kernel masks by index. q and kv of different lengths (KV caches,
-    decode) and a scale other than K^-0.5 (MLA's explicit scale is
-    that one) are not ported yet."""
+    decode) go through `decode_attend`; a scale other than K^-0.5
+    (MLA's explicit scale is that one) is refused."""
     B, S, N, G, K = q.shape
     T, Kv = k.shape[1], v.shape[-1]
     if S != T or scale not in (None, K ** -0.5):
         raise NotImplementedError(
             "attend supports full-sequence attention at the default "
-            "scale only")
+            "scale only; single-token decode is decode_attend")
     if impl not in ("dense", "chunked"):
         raise ValueError(f"unknown attention impl {impl!r}")
     qh = q.permute(0, 2, 3, 1, 4).reshape(B, N * G, S, K)
@@ -85,3 +86,88 @@ def attend(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     out = ops.flash_attention(qh, grp(k), grp(v), causal=causal,
                               window=window)
     return out.reshape(B, N, G, S, Kv).permute(0, 3, 1, 2, 4)
+
+
+# ------------------------------------------------------------ KV cache
+# Cache tree: {"k": (B,size,N,K), "v": (B,size,N,K), "pos": () int32}, the
+# reference's; ring-ness and the window are static arguments of the
+# functions, not leaves. `pos` stays on the device: every index below is
+# a tensor, so a decode step never waits for the host.
+UNWRITTEN = 2 ** 30          # position of a slot never written
+
+
+def init_kv_cache(batch: int, max_len: int, n_kv: int, k_dim: int,
+                  dtype=torch.bfloat16, ring: bool = False, window: int = 0,
+                  device="cpu") -> dict:
+    size = min(window, max_len) if (ring and window) else max_len
+    zeros = lambda: torch.zeros((batch, size, n_kv, k_dim), dtype=dtype,
+                                device=device)
+    return {"k": zeros(), "v": zeros(),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def write_slot(buf, idx, new) -> None:
+    """buf[:, idx[0]] = new[:, 0] in place; idx is a (1,) int64 tensor on
+    buf's device. In deterministic mode CUDA's index_copy_ takes
+    index_put_'s sorted path, which reads the index's range on the host
+    (a sync per call); with one index there is one writer, so the plain
+    kernel, run with the mode off, is deterministic too."""
+    det = buf.is_cuda and torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    if det:
+        torch.use_deterministic_algorithms(False)
+    try:
+        buf.index_copy_(1, idx, new.to(buf.dtype))
+    finally:
+        if det:
+            torch.use_deterministic_algorithms(True, warn_only=warn)
+
+
+def cache_update(cache: dict, k_new, v_new, *, ring: bool = False) -> dict:
+    """Append one step (S_new = 1) of k/v: slot pos % size for a ring,
+    else min(pos, size - 1) (past the end the last slot is overwritten,
+    as in the reference). k and v are written in place; the returned
+    dict holds them and a new pos = pos + 1."""
+    pos = cache["pos"]
+    size = cache["k"].shape[1]
+    idx = torch.remainder(pos, size) if ring else torch.clamp(pos,
+                                                              max=size - 1)
+    idx = idx.reshape(1).long()
+    write_slot(cache["k"], idx, k_new)
+    write_slot(cache["v"], idx, v_new)
+    return dict(cache, pos=pos + 1)
+
+
+def cache_positions(cache: dict, *, ring: bool = False):
+    """Absolute positions of the cache slots, (1, size); unwritten slots
+    get UNWRITTEN, which the mask hides (>= PAD_SENTINEL)."""
+    size = cache["k"].shape[1]
+    pos = cache["pos"]
+    slots = torch.arange(size, dtype=pos.dtype, device=pos.device)
+    if ring:
+        # slot i holds the largest absolute p < pos with p % size == i
+        last = pos - 1
+        abs_pos = slots + torch.div(last - slots, size,
+                                    rounding_mode="floor") * size
+        abs_pos = torch.where(abs_pos > last, abs_pos - size, abs_pos)
+        abs_pos = torch.where(abs_pos < 0, UNWRITTEN, abs_pos)
+    else:
+        abs_pos = torch.where(slots < pos, slots, UNWRITTEN)
+    return abs_pos[None, :]
+
+
+def decode_attend(q, cache: dict, q_pos, *, ring=False, window=0,
+                  scale=None):
+    """Single-token attention against a cache, q (B,1,N,G,K): the plain
+    `dense_attention` over every slot, as the reference computes it.
+    The keys and values of unwritten slots are zeroed as well as masked,
+    so a slot never written adds nothing whatever its buffer holds (NaN
+    included); a masked slot's weight is 0 either way, so the result is
+    the reference's."""
+    size = cache["k"].shape[1]
+    k_pos = cache_positions(cache, ring=ring).expand(q.shape[0], size)
+    written = (k_pos[0] < PAD_SENTINEL)[None, :, None, None]
+    k = torch.where(written, cache["k"], 0)
+    v = torch.where(written, cache["v"], 0)
+    return dense_attention(q, k, v, q_pos, k_pos, causal=True,
+                           window=window, scale=scale)

@@ -1,14 +1,17 @@
 """Decoder backbone (counterpart of `repro/models/backbone.py`): init,
 the stack applied as a Python loop over periods (each period optionally
 recomputed in the backward, as `jax.checkpoint` does in the
-reference's scan), the embedding, the LM head and loss, and `forward`.
+reference's scan), the embedding, the LM head and loss, `forward`, and
+decoding: `init_cache` and `decode_step`.
 
 Layers are grouped into `num_layers // period` periods
 (period = len(block_pattern)); remainder layers are the "tail". The
 parameter tree keeps the reference's shape and leaf order:
 {"embed", "final_ln", "head" (untied only), "stack": {"scan": (one
 stacked (n_periods, ...) subtree per period position, or None),
-"tail": (unstacked blocks)}}.
+"tail": (unstacked blocks)}}. The decode cache tree is the reference's
+too: {"scan": (one stacked (n_periods, ...) cache per period position),
+"tail": (unstacked caches)}, each KV cache's `pos` stacked per period.
 """
 from __future__ import annotations
 
@@ -18,8 +21,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import blocks
-from repro_torch.tree import tree_flatten, tree_map
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 
 def scan_layout(cfg: ArchConfig) -> Tuple[int, int, int]:
@@ -58,6 +62,12 @@ def init_stack(gen, cfg: ArchConfig, tp: int, dtype,
     return {"scan": tuple(scan_params), "tail": tail}
 
 
+def _periods(scan) -> int:
+    """n_periods of a stacked "scan" tuple (0 when every entry is None)."""
+    return next((tree_leaves(sp)[0].shape[0] for sp in scan
+                 if sp is not None), 0)
+
+
 def apply_stack(stack_p, x, cfg: ArchConfig, tp: int, *, positions,
                 impl="chunked", remat=True):
     """Training/prefill over the whole stack. Returns (x, aux_sum).
@@ -80,9 +90,8 @@ def apply_stack(stack_p, x, cfg: ArchConfig, tp: int, *, positions,
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     scan = stack_p["scan"]
-    if any(sp is not None for sp in scan):
-        n = next(tree_flatten(sp)[0][0].shape[0] for sp in scan
-                 if sp is not None)
+    n = _periods(scan)
+    if n:
         per_pos = [_unstack(sp, n) for sp in scan]
         for layer in range(n):
             slices = [per_pos[pos][layer] for pos in range(period)]
@@ -97,6 +106,61 @@ def apply_stack(stack_p, x, cfg: ArchConfig, tp: int, *, positions,
                                   tp, positions=positions, impl=impl)
         aux = aux + a
     return x, aux
+
+
+def init_stack_cache(cfg: ArchConfig, batch: int, max_len: int, tp: int,
+                     dtype=torch.bfloat16, device="cpu"):
+    """The stack's decode caches: per period position, one layer's cache
+    expanded to (n_periods, ...) (one layer's copy is the transient)."""
+    period, n_periods, n_tail = scan_layout(cfg)
+    pattern = cfg.block_pattern
+    one = lambda btype: blocks.init_block_cache(btype, cfg, batch, max_len,
+                                                tp, dtype, device)
+    scan = tuple(
+        tree_map(lambda t: t.expand(n_periods, *t.shape).contiguous(),
+                 one(pattern[pos])) if n_periods else None
+        for pos in range(period))
+    tail = tuple(one(pattern[i % period]) for i in range(n_tail))
+    return {"scan": scan, "tail": tail}
+
+
+def _write_back(cache, new) -> None:
+    """Each leaf of `new` that is not already `cache`'s own tensor (a KV
+    slot is written in place; pos and the recurrent states are new
+    tensors) is copied into it, cast to its dtype."""
+    for old, nw in zip(tree_leaves(cache), tree_leaves(new)):
+        if nw is not old:
+            old.copy_(nw)
+
+
+def decode_stack(stack_p, stack_c, x, cfg: ArchConfig, tp: int):
+    """One decode step over the stack, a Python loop over the periods.
+
+    Each layer decodes against its cache as views of its slice of the
+    stacked buffers (or its tail entry), and what it returns is written
+    back into them in place: no full-size cache is rebuilt per token.
+    Returns (x, stack_c), the cache tree passed in, now one step on."""
+    pattern = cfg.block_pattern
+    period = len(pattern)
+
+    def step(btype, p, x, c):
+        x, nc = blocks.decode_block(btype, p, x, c, cfg, tp)
+        _write_back(c, nc)
+        return x
+
+    n = _periods(stack_p["scan"])
+    if n:
+        per_p = [_unstack(sp, n) for sp in stack_p["scan"]]
+        per_c = [_unstack(sc, n) for sc in stack_c["scan"]]
+        for layer in range(n):
+            for pos in range(period):
+                if per_p[pos][layer] is not None:
+                    x = step(pattern[pos], per_p[pos][layer], x,
+                             per_c[pos][layer])
+    for i, (tp_params, tc) in enumerate(zip(stack_p["tail"],
+                                            stack_c["tail"])):
+        x = step(pattern[i % period], tp_params, x, tc)
+    return x, stack_c
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -127,9 +191,10 @@ def init_params(cfg: ArchConfig, gen, tp: int = 1, dtype=torch.bfloat16,
 def _embed(params, tokens, cfg: ArchConfig):
     x = params["embed"][tokens]
     if cfg.tie_embeddings:
-        # the scale in x's dtype, as jnp's weakly typed Python scalar
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                             device=x.device)
+        # the scale in x's dtype, as jnp's weakly typed Python scalar;
+        # filled on the device (a copy from the host would sync a decode)
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
+                           device=x.device)
     return x
 
 
@@ -165,6 +230,35 @@ def forward(params, tokens, cfg: ArchConfig, tp: int = 1, mesh=None, *,
     x, aux = apply_stack(params["stack"], x, cfg, tp, positions=positions,
                          impl=impl, remat=remat)
     return _logits(params, x, cfg), aux
+
+
+def _check_decoder_only(cfg: ArchConfig, mesh=None) -> None:
+    if mesh is not None:
+        raise NotImplementedError("meshes are not ported "
+                                  "(ROADMAP Queue 1 item 11)")
+    if cfg.encoder_layers:
+        raise NotImplementedError("encoder stacks are not ported yet "
+                                  "(ROADMAP Queue 1 item 10, Whisper)")
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, tp: int = 1,
+               dtype=torch.bfloat16, device=None):
+    """The decode cache for `batch` sequences of up to `max_len` tokens
+    (a ring of `attention_window` slots for local attention), on
+    `device` (the card unless the caller names another)."""
+    _check_decoder_only(cfg)
+    return init_stack_cache(cfg, batch, max_len, tp, dtype,
+                            resolve_device(device, "init_cache"))
+
+
+def decode_step(params, cache, tokens, cfg: ArchConfig, tp: int = 1,
+                mesh=None):
+    """One decode step. tokens: (B, 1) int. Returns (logits (B, 1, V)
+    f32, cache); the cache passed in is updated in place and returned."""
+    _check_decoder_only(cfg, mesh)
+    x = _embed(params, tokens, cfg)
+    x, cache = decode_stack(params["stack"], cache, x, cfg, tp)
+    return _logits(params, x, cfg), cache
 
 
 def lm_loss(logits, tokens, loss_mask=None):

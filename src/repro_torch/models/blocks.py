@@ -8,6 +8,10 @@
   RMSNorm -> SwiGLU MLP;
 - `mlstm` and `slstm`: RMSNorm -> the xLSTM cell with its own up and
   down projections (models/xlstm.py), then the residual.
+Each block type also decodes one token against its cache
+(`init_block_cache`, `decode_block`): a KV cache for the attention
+blocks (a ring of `attention_window` slots for `local_attn`), MLA's
+latent cache, or the recurrent cell's state.
 There is no mesh, so the reference's `shard()` constraints have no
 counterpart. The other block types raise NotImplementedError.
 """
@@ -29,9 +33,11 @@ _NOT_PORTED = {
     "attn_cross": "ROADMAP Queue 1 item 10 (Whisper)",
     "enc_attn": "ROADMAP Queue 1 item 10 (Whisper)",
 }
-# the xLSTM block types: (init, apply) of their cell
-XLSTM = {"mlstm": (xlstm_mod.init_mlstm, xlstm_mod.apply_mlstm),
-         "slstm": (xlstm_mod.init_slstm, xlstm_mod.apply_slstm)}
+# the xLSTM block types: (init, apply, init_state) of their cell
+XLSTM = {"mlstm": (xlstm_mod.init_mlstm, xlstm_mod.apply_mlstm,
+                   xlstm_mod.init_mlstm_state),
+         "slstm": (xlstm_mod.init_slstm, xlstm_mod.apply_slstm,
+                   xlstm_mod.init_slstm_state)}
 
 
 def _refuse(btype: str):
@@ -136,6 +142,18 @@ def apply_attn(p, x, cfg: ArchConfig, tp: int, *, positions, causal=True,
     return _attn_out(p, out, plan, x.dtype)
 
 
+def decode_attn(p, x, cache, cfg: ArchConfig, tp: int, *, window=0,
+                ring=False):
+    """One token, x (B, 1, D), against the KV cache; returns (y, cache)."""
+    plan = head_plan(cfg, tp)
+    positions = cache["pos"].expand(x.shape[0], 1)
+    q, k, v = _project_qkv(p, x, plan, cfg, positions)
+    cache = att.cache_update(cache, k, v, ring=ring)
+    # q positions refer to the *pre-update* pos (the cache now holds it)
+    out = att.decode_attend(q, cache, positions, ring=ring, window=window)
+    return _attn_out(p, out, plan, x.dtype), cache
+
+
 # ----------------------------------------------------------- block API
 def init_block(gen, btype: str, cfg: ArchConfig, tp: int, dtype,
                device="cpu") -> dict:
@@ -196,3 +214,57 @@ def apply_block(btype: str, p: dict, x, cfg: ArchConfig, tp: int, *,
     else:
         y = apply_mlp(p["mlp"], h2)
     return x + y, aux
+
+
+def init_block_cache(btype: str, cfg: ArchConfig, batch: int, max_len: int,
+                     tp: int, dtype=torch.bfloat16, device="cpu"):
+    """The block's decode cache; the recurrent states are f32 whatever
+    `dtype` is, as in the reference."""
+    _refuse(btype)
+    plan = head_plan(cfg, tp)
+    if btype in ATTN_TYPES:
+        ring = btype == "local_attn"
+        return att.init_kv_cache(batch, max_len, plan.n_kv_phys,
+                                 cfg.kq_dim, dtype, ring=ring,
+                                 window=cfg.attention_window if ring else 0,
+                                 device=device)
+    if btype == "mla_moe":
+        return mla_mod.init_mla_cache(cfg, batch, max_len, dtype, device)
+    if btype == "rglru":
+        return rglru_mod.init_rglru_state(cfg, batch, device=device)
+    return XLSTM[btype][2](cfg, batch, device)
+
+
+def decode_block(btype: str, p: dict, x, cache, cfg: ArchConfig, tp: int):
+    """Single-token decode. x: (B, 1, D). Returns (x, new cache)."""
+    _refuse(btype)
+    if btype in XLSTM:
+        h, cache = XLSTM[btype][1](p["cell"],
+                                   rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
+                                   state=cache)
+        return x + h, cache
+    if btype == "mla_moe":
+        h, cache = mla_mod.decode_mla(p["mla"],
+                                      rmsnorm(x, p["ln1"], cfg.norm_eps),
+                                      cache, cfg)
+        x = x + h
+        y = moe_mod.decode_moe(p["moe"], rmsnorm(x, p["ln2"], cfg.norm_eps),
+                               cfg)
+        return x + y, cache
+    if btype == "rglru":
+        h, cache = rglru_mod.apply_rglru(
+            p["rnn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, state=cache)
+        x = x + h
+        y = apply_mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+        return x + y, cache
+    ring = btype == "local_attn"
+    h, cache = decode_attn(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
+                           cache, cfg, tp, ring=ring,
+                           window=cfg.attention_window if ring else 0)
+    x = x + h
+    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if btype == "attn_moe":
+        y = moe_mod.decode_moe(p["moe"], h2, cfg)
+    else:
+        y = apply_mlp(p["mlp"], h2)
+    return x + y, cache

@@ -10,9 +10,11 @@ qk_rope_dim wide (192 in DeepSeek-V2-Lite) and v is v_head_dim wide
 (qk_nope_dim + qk_rope_dim)^-0.5. Queries come from `w_q`, or through
 their own latent (`w_dq`, `q_ln`, `w_uq`) when q_lora_rank > 0.
 
-Not ported yet: the absorbed decode path over the latent cache
-(`init_mla_cache`, `decode_mla`; ROADMAP Queue 1 item 10) and the mesh
-axes (`mla_axes`, item 11).
+Decode caches only the latent c_kv and the rotary key per position
+(`init_mla_cache`) and absorbs `w_uk` into the query and `w_uv` into
+the output (`decode_mla`), in f32 as in the reference.
+
+Not ported yet: the mesh axes (`mla_axes`, ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -88,3 +90,52 @@ def apply_mla(p: dict, x, positions, cfg: ArchConfig,
     out = att.attend(q[:, :, :, None, :], k, v, positions, positions,
                      causal=True, impl=impl, scale=scale)[:, :, :, 0, :]
     return blocks.einsum("bshk,hkd->bsd", out, p["w_o"])
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device="cpu") -> dict:
+    m = cfg.mla
+    zeros = lambda w: torch.zeros((batch, max_len, w), dtype=dtype,
+                                  device=device)
+    return {"ckv": zeros(m.kv_lora_rank), "k_rope": zeros(m.qk_rope_dim),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def decode_mla(p: dict, x, cache: dict, cfg: ArchConfig):
+    """Absorbed decode: the scores are taken against the latent cache
+    directly. x: (B, 1, D). The new latent and rotary key are written in
+    place at slot min(pos, T - 1) (dynamic_update_slice clamps its start
+    so in the reference); the returned dict holds them and pos + 1.
+    Slots after pos are masked, and zeroed so that one never written adds
+    nothing whatever its buffer holds."""
+    m = cfg.mla
+    B = x.shape[0]
+    pos = cache["pos"]
+    positions = pos.expand(B, 1)
+    q_nope, q_rope = _queries(p, x, positions, m, cfg.rope_theta)
+
+    ckv_new = blocks.matmul(x, p["w_dkv"])
+    c_kv_new = _rmsnorm(ckv_new[..., :m.kv_lora_rank], p["kv_ln"])
+    k_rope_new = att.rope(ckv_new[..., None, m.kv_lora_rank:], positions,
+                          cfg.rope_theta)[:, :, 0, :]
+    T = cache["ckv"].shape[1]
+    idx = torch.clamp(pos, max=T - 1).reshape(1).long()
+    att.write_slot(cache["ckv"], idx, c_kv_new)
+    att.write_slot(cache["k_rope"], idx, k_rope_new)
+    cache = dict(cache, pos=pos + 1)
+    valid = torch.arange(T, device=x.device) <= pos            # (T,)
+    ckv = torch.where(valid[:, None], cache["ckv"].float(), 0.0)
+    k_rope = torch.where(valid[:, None], cache["k_rope"].float(), 0.0)
+    # absorb W_uk: q_lat = q_nope W_uk, scored against c_kv directly
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope.float(),
+                         p["w_uk"].float())
+    logits = torch.einsum("bshr,btr->bhst", q_lat, ckv)
+    logits = logits + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                                   k_rope)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    logits = torch.where(valid, logits * scale, att.NEG_INF)
+    pr = torch.softmax(logits, -1)
+    o_lat = torch.einsum("bhst,btr->bshr", pr, ckv)            # (B,1,h,R)
+    out = torch.einsum("bshr,rhk->bshk", o_lat,
+                       p["w_uv"].float()).to(x.dtype)
+    return blocks.einsum("bshk,hkd->bsd", out, p["w_o"]), cache

@@ -1,5 +1,6 @@
 """Mixture-of-Experts FFN with capacity-based dispatch (counterpart of
-`repro/models/moe.py`).
+`repro/models/moe.py`), and `decode_moe`, the decode path's
+dense-gather form.
 
 The router, the top-k choice, dispatch and combine are plain tensor
 code, as the reference computes them outside any kernel; the three
@@ -130,3 +131,34 @@ def apply_moe(p: dict, x, cfg: ArchConfig,
     ce = onehot[..., :moe.num_experts].sum(2).mean((0, 1))
     aux = moe.num_experts * torch.sum(me * ce) * moe.router_aux_weight
     return y.to(x.dtype), aux
+
+
+def decode_moe(p: dict, x, cfg: ArchConfig):
+    """Decode-path MoE (S small), the reference's dense-gather form:
+    every expert runs on the tiny token set, and each token's output is
+    its experts' outputs weighted by its renormalised top-k gates, plus
+    the shared experts. Nothing is dropped (apply_moe drops tokens over
+    capacity). The products are plain, as the reference computes them
+    outside any kernel. x: (B, S, D)."""
+    moe = cfg.moe
+    E = p["router"].shape[1]
+    logits = blocks.matmul(x.float(), p["router"])
+    if E > moe.num_experts:                                 # mask padding
+        pad = torch.arange(E, device=x.device) >= moe.num_experts
+        logits = torch.where(pad, torch.full_like(logits, -1e30), logits)
+    probs = torch.softmax(logits, -1)
+    gate_vals, idx = torch.topk(probs, moe.top_k, dim=-1, sorted=True)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    # the one-hot by comparison with a fixed class count: no host sync
+    onehot = (idx[..., None] == torch.arange(E, device=x.device)).float()
+    w = torch.einsum("bsk,bske->bse", gate_vals, onehot)
+    h = F.silu(blocks.einsum("bsd,edf->ebsf", x, p["w_gate"]))
+    h = h * blocks.einsum("bsd,edf->ebsf", x, p["w_up"])
+    out = blocks.einsum("ebsf,efd->ebsd", h, p["w_down"])
+    y = blocks.einsum("ebsd,bse->bsd", out, w.to(x.dtype))
+    if moe.num_shared:
+        hs = F.silu(blocks.matmul(x, p["ws_gate"])) * \
+            blocks.matmul(x, p["ws_up"])
+        y = y + blocks.matmul(hs, p["ws_down"])
+    return y.to(x.dtype)

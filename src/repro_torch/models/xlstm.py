@@ -4,11 +4,12 @@ chunkwise-parallel mLSTM (matrix memory) and the sequential sLSTM
 
 Training runs the mLSTM cell through the CUDA kernels
 (`ops.mlstm_chunkwise`, forward and backward), where the reference calls
-its own `jnp` chunkwise function. Decoding with a carried state is not
-ported yet (ROADMAP Queue 1 item 10): a given state raises. The sLSTM
-has no kernel: its recurrence is a Python loop over time, as the reference's
+its own `jnp` chunkwise function. Decoding with a carried state (C, n,
+m and the conv's context) runs the reference's chunkwise function,
+plain (`mlstm_chunkwise`), from that state. The sLSTM has no kernel:
+its recurrence is a Python loop over time, as the reference's
 `lax.scan`, with the input projection x_t W for every step taken in one
-product before the loop.
+product before the loop, from the zero state or a carried one.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import NEG
+from repro_torch.kernels.ref import NEG, mlstm_chunks
 
 
 def _silu(x):
@@ -72,12 +73,6 @@ def _pad_chunks(chunk: int, q, k, v, log_i, log_f):
             F.pad(log_f, (0, pad)))
 
 
-def _refuse_state(state) -> None:
-    if state is not None:
-        raise NotImplementedError("xLSTM decode with a carried state is "
-                                  "not ported yet: ROADMAP Queue 1 item 10")
-
-
 def _mlstm_cell(q, k, v, log_i, log_f, chunk: int):
     """The training path's cell from the zero state, through the kernels:
     q, k, v (B, H, S, K) f32, log gates (B, H, S), padded by
@@ -90,13 +85,35 @@ def _mlstm_cell(q, k, v, log_i, log_f, chunk: int):
     return h.reshape(B, H, -1, K)[:, :, :S]
 
 
-def _conv_silu(x, w, b):
-    """Causal depthwise conv + SiLU from a zero context. x: (B, S, D), w:
-    (W, D). The shifted products are summed in x's dtype, in order, from
-    0, as the reference's Python `sum`."""
+def mlstm_chunkwise(q, k, v, log_i, log_f, state=None, chunk: int = 64):
+    """The reference's model-level chunkwise mLSTM, plain: q, k, v (B, H,
+    S, K) f32, log gates (B, H, S), state (C (B, H, K, K), n (B, H, K),
+    m (B, H)) or None for the zero state; S padded up to a multiple of
+    `chunk`. Returns h (B, H, S, K) f32 and the state after step S. The
+    decode path's cell (the training path's is `_mlstm_cell`)."""
+    B, H, S, K = q.shape
+    q, k, v, log_i, log_f = _pad_chunks(chunk, q, k, v, log_i, log_f)
+    fold = lambda t: t.reshape(B * H, *t.shape[2:])
+    if state is not None:
+        state = tuple(fold(t) for t in state)
+    h, _, state = mlstm_chunks(fold(q), fold(k), fold(v), fold(log_i),
+                               fold(log_f), chunk, state)
+    unfold = lambda t: t.reshape(B, H, *t.shape[1:])
+    return unfold(h)[:, :, :S], tuple(unfold(t) for t in state)
+
+
+def _conv_silu(x, w, b, state=None):
+    """Causal depthwise conv + SiLU. x: (B, S, D), w: (W, D); state (B,
+    W - 1, D) is the context before x (decode), or None for zeros. The
+    shifted products are summed in x's dtype, in order, from 0, as the
+    reference's Python `sum`. Returns (out, the last W - 1 inputs)."""
     W = w.shape[0]
-    xp = F.pad(x, (0, 0, W - 1, 0))
-    return _silu(sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(W)) + b)
+    if state is None:
+        xp = F.pad(x, (0, 0, W - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], 1)
+    out = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(W))
+    return _silu(out + b), xp[:, -(W - 1):]
 
 
 def _groupnorm(x, groups: int, eps: float = 1e-6):
@@ -107,17 +124,30 @@ def _groupnorm(x, groups: int, eps: float = 1e-6):
     return ((xf - mu) * torch.rsqrt(var + eps)).reshape(B, S, D).to(x.dtype)
 
 
+def init_mlstm_state(cfg: ArchConfig, batch: int, device="cpu") -> dict:
+    H = cfg.num_heads
+    inner = 2 * cfg.d_model
+    dh = inner // H
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros((batch, H, dh, dh), **f32),
+            "n": torch.zeros((batch, H, dh), **f32),
+            "m": torch.full((batch, H), NEG, **f32),
+            "conv": torch.zeros((batch, cfg.conv_width - 1, inner), **f32)}
+
+
 def apply_mlstm(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None,
                 chunk: int = 64) -> Tuple[torch.Tensor, Optional[dict]]:
-    """x: (B, S, D) -> (B, S, D), training/prefill from the zero state;
-    returns (y, None). A decode state raises (not ported yet)."""
-    _refuse_state(state)
+    """x: (B, S, D) -> (y (B, S, D), new state). With state None
+    (training, prefill) the cell runs the kernels from the zero state
+    and the new state is None; with a decode state {"C", "n", "m",
+    "conv"} it runs `mlstm_chunkwise` from it and returns the next."""
     B, S, D = x.shape
     H = cfg.num_heads
     up = x @ p["w_up"]
     inner = up.shape[-1] // 2
     xm, z = up[..., :inner], up[..., inner:]
-    xc = _conv_silu(xm, p["conv_w"], p["conv_b"])
+    xc, new_conv = _conv_silu(xm, p["conv_w"], p["conv_b"],
+                              None if state is None else state["conv"])
     xcf = xc.float()
     to_heads = lambda w: torch.einsum("bsi,ihk->bhsk", xcf, w.float())
     q, k, v = to_heads(p["w_q"]), to_heads(p["w_k"]), to_heads(p["w_v"])
@@ -125,11 +155,18 @@ def apply_mlstm(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None,
     # an update; against f32 activations jnp promotes them to f32
     log_i = (xcf @ p["w_i"].float() + p["b_i"]).transpose(1, 2)   # (B,H,S)
     log_f = F.logsigmoid(xcf @ p["w_f"].float() + p["b_f"]).transpose(1, 2)
-    h = _mlstm_cell(q, k, v, log_i, log_f, min(chunk, S))
+    new_state = None
+    if state is None:
+        h = _mlstm_cell(q, k, v, log_i, log_f, min(chunk, S))
+    else:
+        h, (C, n, m) = mlstm_chunkwise(
+            q, k, v, log_i, log_f, (state["C"], state["n"], state["m"]),
+            chunk=min(chunk, S))
+        new_state = {"C": C, "n": n, "m": m, "conv": new_conv}
     h = h.transpose(1, 2).reshape(B, S, inner).to(x.dtype)
     h = _groupnorm(h, H) * p["ogate_ln"] + xc * p["skip"]
     y = h * _silu(z.float()).to(x.dtype)
-    return y @ p["w_down"], None
+    return y @ p["w_down"], new_state
 
 
 # =============================================================== sLSTM
@@ -155,6 +192,9 @@ def init_slstm(gen, cfg: ArchConfig, dtype=torch.bfloat16,
     }
 
 
+SLSTM_STATE = ("h", "c", "n", "m")
+
+
 def _slstm_step(zin, carry):
     """One step from the gate pre-activations zin (H, B, 4, Dh) f32 and
     carry (h, c, n, m), each (H, B, Dh). The gates are taken with one
@@ -176,18 +216,22 @@ def _slstm_step(zin, carry):
 
 def apply_slstm(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """x: (B, S, D) -> (B, S, D), training/prefill from the zero state;
-    returns (y, None). A decode state raises (not ported yet).
+    """x: (B, S, D) -> (y (B, S, D), new state): from the zero state
+    with state None (training, prefill; the new state is None), else
+    from the decode state {"h", "c", "n", "m"}, each (B, H, Dh) f32,
+    returning the state after step S.
 
     The carry is kept head-major, (H, B, Dh), so that each step's
     recurrent product is one batched matmul over heads fused with the
     add of the step's input projection (torch.baddbmm)."""
-    _refuse_state(state)
     B, S, D = x.shape
     H = cfg.num_heads
     Dh = D // H
-    z = torch.zeros((H, B, Dh), dtype=torch.float32, device=x.device)
-    carry = (z, z, z, torch.full_like(z, NEG))
+    if state is None:
+        z = torch.zeros((H, B, Dh), dtype=torch.float32, device=x.device)
+        carry = (z, z, z, torch.full_like(z, NEG))
+    else:
+        carry = tuple(state[k].float().transpose(0, 1) for k in SLSTM_STATE)
     xf = x.float()
     # x_t W + b for every step: (S, H, B, 4 * Dh). The gate leaves are
     # f32 at init and in the parameters' dtype after an update; against
@@ -207,4 +251,15 @@ def apply_slstm(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None
     # GeGLU feed-forward; jax.nn.gelu's default is the tanh approximation
     y = (F.gelu((h @ p["w_ff1"]).float(), approximate="tanh").to(x.dtype)
          * (h @ p["w_ff2"]))
-    return y @ p["w_ff3"], None
+    new_state = None
+    if state is not None:
+        new_state = {k: t.transpose(0, 1) for k, t in zip(SLSTM_STATE,
+                                                          carry)}
+    return y @ p["w_ff3"], new_state
+
+
+def init_slstm_state(cfg: ArchConfig, batch: int, device="cpu") -> dict:
+    H = cfg.num_heads
+    z = lambda v: torch.full((batch, H, cfg.d_model // H), v,
+                             dtype=torch.float32, device=device)
+    return {"h": z(0.0), "c": z(0.0), "n": z(0.0), "m": z(NEG)}

@@ -1,5 +1,6 @@
-"""train_step / prefill_step builders (counterpart of
-`repro/train/step.py`) for one device: the programs the launcher runs.
+"""train_step / prefill_step / serve_step builders (counterpart of
+`repro/train/step.py`) for one device: the programs the launcher runs,
+and the one-token decode step that serves against a cache.
 
 The train step consumes its state, as the reference launcher's
 `jax.jit(train_step, donate_argnums=(0,))` does: the Adam update writes
@@ -157,3 +158,22 @@ def make_prefill_step(cfg: ArchConfig, run: RunCfg, mesh=None, *,
         return logits
 
     return prefill_step
+
+
+# ------------------------------------------------------------ serve step
+def make_serve_step(cfg: ArchConfig, mesh=None, *, device=None):
+    """serve_step(params, cache, tokens) -> (logits (B, 1, V) f32, cache):
+    one decode step against the cache (`backbone.decode_step`) without
+    gradients, on `device` (the card unless the caller passes another).
+    The cache (from `backbone.init_cache`) is updated in place and
+    returned; tokens (B, 1) are moved to the device (no copy when they
+    are there already, so a step on the card never waits for the host)."""
+    _no_mesh(mesh)
+    dev = _device(device, "make_serve_step")
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens):
+        tokens = torch.as_tensor(tokens).to(dev).long()
+        return backbone.decode_step(params, cache, tokens, cfg)
+
+    return serve_step

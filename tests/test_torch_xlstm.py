@@ -122,17 +122,23 @@ def test_cell_and_gradients_match_jax_vjp(cell, dtype):
 
 @pytest.mark.parametrize("cell", ["mlstm", "slstm"])
 def test_decode_state_is_refused(cell):
-    """Decoding is not ported: a carried state raises, naming the
-    ROADMAP item."""
+    """A carried state was refused until decoding was ported; it is now
+    taken, and the cell returns the next state in the reference's keys,
+    shapes and dtypes (its values are held against the reference in
+    tests/test_torch_decode_xlstm.py)."""
     jinit, _, apply = CELLS[cell]
     jcfg, cfg = jxc.reduced(), xc.reduced()
     init = {"mlstm": jxlstm.init_mlstm_state,
             "slstm": jxlstm.init_slstm_state}[cell]
     tp = params_from_numpy(jax.tree.map(
         np.asarray, jinit(jax.random.PRNGKey(4), jcfg, jnp.float32)), "cpu")
-    st = params_from_numpy(jax.tree.map(np.asarray, init(jcfg, B)), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        apply(tp, torch.from_numpy(_x(10, B, 1, cfg.d_model)), cfg, st)
+    want = init(jcfg, B)
+    st = params_from_numpy(jax.tree.map(np.asarray, want), "cpu")
+    y, new = apply(tp, torch.from_numpy(_x(10, B, 1, cfg.d_model)), cfg, st)
+    assert y.shape == (B, 1, cfg.d_model) and sorted(new) == sorted(want)
+    for k in new:
+        assert tuple(new[k].shape) == want[k].shape, k
+        assert new[k].dtype == torch.float32, k
 
 
 def test_mlstm_shorter_than_a_chunk_matches_jax():
