@@ -23,7 +23,9 @@ Phases (each failure exits non-zero):
      window as a mask where there is one, run by the first of its fused
      backends that takes the shape (cuDNN, flash, mem-efficient; named,
      and none taking it fails), whose forward flash_fwd must beat at the
-     four paths' shapes; torch.bmm for the
+     four paths' shapes (at the fifth, Whisper's non-causal encoder at
+     S 1500, f32 and bf16, the ratio is printed, not gated); torch.bmm
+     for the
      grouped expert matmul, which each of its three kernels must beat at
      both shapes of each MoE path; both timed in turns with the kernel;
      none for the RG-LRU
@@ -62,10 +64,11 @@ Phases (each failure exits non-zero):
      with RunCfg's defaults (bf16 parameters, remat, grad_accum 1);
      the profiled step must show device time in the RG-LRU scan's
      kernels;
-  7. slice, xLSTM: the launcher trains xLSTM-350M at full width and
-     depth (24 layers: 12 x (mlstm, slstm); d_model 1024, 4 heads of
-     512 in the mLSTM, vocab 50304, untied head) for XL_STEPS steps at
-     global batch 4, seq XL_SEQ, with RunCfg's defaults;
+  7. slice, xLSTM: the launcher trains xLSTM-350M at full width, its
+     depth cut by --layers from 24 to XL_LAYERS (6 of its 12 (mlstm,
+     slstm) periods; d_model 1024, 4 heads of 512 in the mLSTM, vocab
+     50304, untied head) for XL_STEPS steps at global batch 4, seq XL_SEQ,
+     with RunCfg's defaults;
   8. slice, migration (run right after phase 4, once its engines are
      freed): the Controller drives GPT-medium with phase 4's engine
      arguments on a cluster of dp x pp + 2 + 1 machines with one
@@ -119,8 +122,24 @@ Phases (each failure exits non-zero):
      decode_moe never does: its decode is held against the CPU's at the
      reduced config instead (SERVE_REF_TOL). StableLM also decodes a
      third time plainly (bitwise) and once with a bf16 cache (reported).
+     Whisper-medium at full width and depth (24 + 24 layers, 448
+     self-cache slots, batch 4, 32 tokens): setup_cross_cache runs the
+     encoder (the kernels, non-causal) over seeded f32 frames and fills
+     the cross K/V before each decode (the NaN-filled run's cross buffers
+     are NaN until it), and the prefill takes the same frames.
      Printed: ms per token, tokens/s (B * N over the decode loop's wall
-     time between synchronizations) and the peak device memory.
+     time between synchronizations) and the peak device memory;
+ 12. slice, Whisper-medium (run after phase 10, before phase 11): the
+     launcher trains it at full width and depth (24 enc_attn encoder
+     layers over 1500 frames, 24 attn_cross decoder layers; d_model
+     1024, 16 x 64 heads, d_ff 4096, vocab 51865, untied head;
+     1,012,314,112 parameters) for 3 steps at global batch 8, seq 448
+     (Whisper's text context), with RunCfg's defaults (bf16 parameters,
+     remat) and train/data.py's f32 frames, so the encoder runs in f32;
+     the profiled step must show device time in the encoder's
+     non-causal flash_fwd (its f32 d-64 instance, which only the
+     encoder launches: the bf16 decoder's causal self-attention runs
+     the bf16 one).
 Each engine slice runs setup, record_iteration and 3 x train_iteration
 twice with the same seed; the launcher slices run the launcher twice.
 Losses must be bitwise equal across the two runs, and the GPT, MoE and
@@ -202,6 +221,17 @@ MLA_ATTN = dict(SLICE, d=192, dv=128)
 # head expanded), seq 4096, head dim 256, window 2048, bf16 activations
 RG_ATTN = dict(bh=10, s=4096, d=256, dtype=torch.bfloat16, causal=True,
                window=2048)
+# Whisper-medium's encoder: batch 8 x 16 heads of 64, non-causal over
+# its 1500 frames (no multiple of any tile), f32 under the launcher's
+# f32 frames and bf16 under bf16 frames; timed, not gated against SDPA
+ENC_ATTN = dict(bh=8 * 16, s=1500, d=64, dtype=torch.float32,
+                causal=False, window=0)
+ENC_ATTN_BF16 = dict(ENC_ATTN, dtype=torch.bfloat16)
+# its training slice: launcher steps, batch and text context
+WH_STEPS, WH_BATCH, WH_SEQ = 3, 8, 448
+# the kernel instance only its encoder launches in that slice: the f32
+# forward at d 64 (f32 frames; the decoder's self-attention is bf16)
+ENC_FWD_KERNEL = r"\bfwd_kernel<float, 64, 64,"
 # its RG-LRU scans: batch 1, seq 4096, width 2560, f32 gates
 RG_SCAN = dict(b=1, s=4096, d=2560, a_dtype=torch.float32,
                x_dtype=torch.float32)
@@ -223,6 +253,10 @@ MLSTM_FIRST_MS = {"mlstm_fwd": 6.5571, "mlstm_bwd_dqdk": 9.8827,
                   "mlstm_bwd_dv": 7.1825}
 # the xLSTM-350M slice: steps per launcher run and sequence length
 XL_STEPS, XL_SEQ = 2, 2048
+# its depth on that path: half of its 24 layers, for the script's time
+# limit (the sLSTM's Python loop holds a step at 61-89 s at full depth);
+# phase 11 serves it at full depth
+XL_LAYERS = 12
 # its mLSTM cells: batch 4 x 4 heads, seq XL_SEQ, head dim 512, chunk
 # 64, f32 q, k, v and log gates
 XL_MLSTM = dict(bh=16, s=XL_SEQ, k=512, chunk=64, dtype=torch.float32)
@@ -234,7 +268,8 @@ XL_MLSTM = dict(bh=16, s=XL_SEQ, k=512, chunk=64, dtype=torch.float32)
 SERVE = {"stablelm-1.6b": (8, 64, 2048, None),
          "recurrentgemma-2b": (2, 2112, 2112, 3),
          "xlstm-350m": (4, 64, 64, None),
-         "deepseek-v2-lite-16b": (8, 64, 2048, 2)}
+         "deepseek-v2-lite-16b": (8, 64, 2048, 2),
+         "whisper-medium": (4, 32, 448, None)}
 # decode (the plain dense attention over the cache, products at B rows)
 # against the prefill forward (the kernels, products at B x N rows) on
 # the card, f32 weights and cache: max |decode - prefill| over max(1,
@@ -449,7 +484,9 @@ def check_kernels(fa):
              dict(bh=3, s=300, d=192, dv=128, causal=True,
                   dtype=torch.float32, window=70),
              dict(bh=2, s=200, d=192, dv=128, causal=True,
-                  dtype=torch.bfloat16, window=45)]
+                  dtype=torch.bfloat16, window=45),
+             # Whisper's encoder: non-causal at S 1500, f32 and bf16
+             dict(ENC_ATTN), dict(ENC_ATTN_BF16)]
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results, shapes = {}, {n: [] for n in FLASH}
     for c in cases:
@@ -503,9 +540,11 @@ def check_kernels(fa):
             f"repeat {repeat}", flush=True)
         if not ok:
             raise SystemExit(f"kernel check failed at {label}")
-        if c in (SLICE, MOE_ATTN, MLA_ATTN, RG_ATTN):
+        if c in (SLICE, MOE_ATTN, MLA_ATTN, RG_ATTN, ENC_ATTN,
+                 ENC_ATTN_BF16):
             timed = {n: {"max_abs_err": errs[n]} for n in FLASH}
-            time_attention(fa, timed, c, q, k, v, do, o, lse, sc)
+            time_attention(fa, timed, c, q, k, v, do, o, lse, sc,
+                           gate=c not in (ENC_ATTN, ENC_ATTN_BF16))
             for n in FLASH:
                 shapes[n].append({"shape": label, **timed[n]})
             if c == SLICE:
@@ -516,10 +555,10 @@ def check_kernels(fa):
     return results
 
 
-def time_attention(fa, results, shape, q, k, v, do, o, lse, sc):
+def time_attention(fa, results, shape, q, k, v, do, o, lse, sc, gate=True):
     """Times of the three kernels, the plain versions and SDPA at one of
     the paths' shapes; flash_fwd and SDPA's forward are timed in turns,
-    and the kernel must be faster."""
+    and with `gate` the kernel must be faster."""
     from torch.nn.attention import sdpa_kernel
     causal, win, reps = shape["causal"], shape["window"], 10
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
@@ -571,7 +610,9 @@ def time_attention(fa, results, shape, q, k, v, do, o, lse, sc):
         out, (ql, kl, vl), do4, retain_graph=True), reps)
     results["flash_bwd_dkdv"]["library_ms"] = lib_bwd
     results["flash_bwd_dq"]["library_ms"] = lib_bwd
-    at = f"d={shape['d']}" + (f" dv={shape['dv']}" if "dv" in shape else "")
+    at = (f"d={shape['d']}" + (f" dv={shape['dv']}" if "dv" in shape else "")
+          + ("" if causal else f" s={shape['s']} {str(shape['dtype'])[6:]} "
+             "non-causal"))
     for n in FLASH:
         results[n]["bound_ms"], results[n]["bound_by"] = bound(
             *attention_work(n, **shape), shape["dtype"])
@@ -588,8 +629,9 @@ def time_attention(fa, results, shape, q, k, v, do, o, lse, sc):
           f"{lib_bwd:.4f} ms, ratio {pair / lib_bwd:.3f}", flush=True)
     fwd = results["flash_fwd"]
     print(f"  forward at {at}: flash_fwd / SDPA ({name}) forward "
-          f"{fwd['ms'] / fwd['library_ms']:.3f}", flush=True)
-    if fwd["ms"] >= fwd["library_ms"]:
+          f"{fwd['ms'] / fwd['library_ms']:.3f}"
+          + ("" if gate else " (not gated)"), flush=True)
+    if gate and fwd["ms"] >= fwd["library_ms"]:
         raise SystemExit(f"flash_fwd not faster than SDPA's {name} "
                          f"forward at {shape}")
 
@@ -624,33 +666,46 @@ def gmm_wide(a, b, a_row: int, b_row: int) -> bool:
             and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
 
 
-def gmm_instances(fn, tries: int = 3):
+def gmm_name(name: str):
+    """`gmm_mma_kernel<dtype, TA, TB, WIDE>` of a profiler's kernel name,
+    mangled or not, or None for any other name."""
+    inst = instance_name(name)
+    m = re.search(r"(gmm(?:_mma)?_kernel)<([^>]*)>", name)
+    if inst is None and m:
+        words = {"float": "f32", "__nv_bfloat16": "bf16", "false": "0",
+                 "true": "1"}
+        args = [words.get(a.strip(), a.strip()) for a in m.group(2).split(",")]
+        inst = f"{m.group(1)}<{', '.join(args)}>"
+    return inst if inst and inst.startswith("gmm") else None
+
+
+def gmm_instances(gm, fn, tries: int = 5):
     """The grouped-matmul kernel instances `fn` launches, in launch
-    order, named as instance_name names them (`gmm_mma_kernel<dtype, TA,
-    TB, WIDE>`), from the profiler's kernel names, mangled or not. The
-    profiler has come back with no device event at all for three
-    launches of a few microseconds, so an empty profile is taken again,
-    up to `tries` times."""
+    order, from the profiler's events of any device type, ordered by
+    start. The profiler has come back with no event at all for three
+    launches of a few microseconds and, right after a shape's timed
+    calls, without the first of three in three profiles running; so a
+    profile with fewer grouped-matmul events than the wrappers counted
+    launches (gm.LAUNCHES) is taken again after a pause, up to `tries`
+    times, each retry printing what the profile held."""
     from torch.profiler import ProfilerActivity, profile
-    words = {"float": "f32", "__nv_bfloat16": "bf16", "false": "0",
-             "true": "1"}
-    out = []
-    for _ in range(tries):
+    for i in range(tries):
         torch.cuda.synchronize()
+        time.sleep(0.2 * i)
+        before = sum(gm.LAUNCHES.values())
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        for name, _ in device_kernels(prof):
-            inst = instance_name(name)
-            m = re.search(r"(gmm(?:_mma)?_kernel)<([^>]*)>", name)
-            if inst is None and m:
-                args = [words.get(a.strip(), a.strip())
-                        for a in m.group(2).split(",")]
-                inst = f"{m.group(1)}<{', '.join(args)}>"
-            if inst and inst.startswith("gmm"):
-                out.append(inst)
-        if out:
+        launched = sum(gm.LAUNCHES.values()) - before
+        events = sorted(prof.profiler.kineto_results.events(),
+                        key=lambda e: e.start_ns())
+        out = [n for n in map(gmm_name, (e.name() for e in events)) if n]
+        if len(out) >= launched:
             break
+        print(f"  profile {i + 1}: {len(out)} grouped-matmul events for "
+              f"{launched} launches, {len(events)} events in all: "
+              f"{[(str(e.device_type()), e.name()[:48]) for e in events]}",
+              flush=True)
     return out
 
 
@@ -698,7 +753,7 @@ def check_gmm(gm):
             again = run()
         repeat = all(torch.equal(a, b) for a, b in zip(got, again))
         del again
-        ran = gmm_instances(run)
+        ran = gmm_instances(gm, run)
         # (TA, TB, wide) of each product, in launch order
         inst = ((0, 0, gmm_wide(x, w, k, n)), (0, 1, gmm_wide(dy, w, n, n)),
                 (1, 0, gmm_wide(x, dy, k, n)))
@@ -1675,22 +1730,34 @@ def drive_campaign(mods, card: str, unbroken):
 # launcher's paths
 LAYER_KERNELS = {"rglru": (SCAN[:1], SCAN[1:]),
                  "local_attn": (FLASH[:1], FLASH[1:]),
-                 "mlstm": (MLSTM[:1], MLSTM[1:])}
+                 "mlstm": (MLSTM[:1], MLSTM[1:]),
+                 "attn_cross": (FLASH[:1], FLASH[1:]),
+                 "enc_attn": (FLASH[:1], FLASH[1:])}
+
+
+def stacks(cfg):
+    """(pattern, layers) of the decoder stack, and of the encoder's where
+    the model has one."""
+    from repro_torch.models.backbone import ENC_PATTERN
+    return [(cfg.block_pattern, cfg.num_layers)] + (
+        [(ENC_PATTERN, cfg.encoder_layers)] if cfg.encoder_layers else [])
 
 
 def launcher_expected_launches(cfg, steps: int):
     """Launches over `steps` train steps with remat: a period's layers
     run forward twice (the forward, then the recompute in the backward),
-    tail layers once; every layer runs backward once."""
+    tail layers once; every layer runs backward once. The encoder's
+    stack counts as the decoder's does."""
     from repro_torch.models.backbone import scan_layout
-    period, n_periods, _ = scan_layout(cfg)
     want = {n: 0 for n in FLASH + GMM + SCAN + MLSTM}
-    for i, t in enumerate(cfg.layer_types()):
-        fwd, bwd = LAYER_KERNELS.get(t, ((), ()))
-        for n in fwd:
-            want[n] += 2 if i < period * n_periods else 1
-        for n in bwd:
-            want[n] += 1
+    for pattern, layers in stacks(cfg):
+        period, n_periods, _ = scan_layout(cfg, pattern, layers)
+        for i in range(layers):
+            fwd, bwd = LAYER_KERNELS.get(pattern[i % period], ((), ()))
+            for n in fwd:
+                want[n] += 2 if i < period * n_periods else 1
+            for n in bwd:
+                want[n] += 1
     return {n: steps * c for n, c in want.items()}
 
 
@@ -1733,11 +1800,12 @@ def run_launcher(mods, argv, count: bool):
     return hist, launches, traces
 
 
-def drive_launcher(mods, cfg, argv, label, busy_groups=()):
+def drive_launcher(mods, cfg, argv, label, busy_groups=(), busy_kernels=()):
     """The launcher twice over `argv` with one seed: counted launches
     against the config's, then the last step of the second run
-    profiled, in which each group of `busy_groups` must show device
-    time; losses bitwise equal across the runs."""
+    profiled, in which each group of `busy_groups` and each kernel whose
+    name matches a pattern of `busy_kernels` must show device time;
+    losses bitwise equal across the runs."""
     steps = int(argv[argv.index("--steps") + 1])
     print(f"[slice] {cfg.name}, {cfg.num_layers} layers, {label}",
           flush=True)
@@ -1763,6 +1831,13 @@ def drive_launcher(mods, cfg, argv, label, busy_groups=()):
         print("  profiler: no trace recorded; breakdown not measured",
               flush=True)
     idle = [g for g in busy_groups if not (groups or {}).get(g)]
+    for pat in busy_kernels:
+        hits = [us for n, us in (traces[-1] if traces else ())
+                if re.search(pat, n)]
+        print(f"  kernels matching {pat!r}: {len(hits)} launches, "
+              f"{sum(hits) / 1e3:.1f} ms of device time", flush=True)
+        if not sum(hits):
+            idle.append(pat)
     if idle:
         raise SystemExit(f"no device time in {idle} in the profiled step")
     same = [h["loss"] for h in again] == losses
@@ -1775,12 +1850,14 @@ def drive_launcher(mods, cfg, argv, label, busy_groups=()):
 
 def kv_buffers(cache) -> list:
     """A decode cache's slot buffers (KV caches, MLA's latent cache):
-    what a step may read only where written. Recurrent states are read
-    whole and are not among them."""
+    what a step may read only where written; and the cross K/V, which
+    setup_cross_cache must write whole. Recurrent states are read whole
+    and are not among them."""
     if isinstance(cache, dict):
         if "pos" in cache:
             return [t for k, t in cache.items() if k != "pos"]
-        return [t for v in cache.values() for t in kv_buffers(v)]
+        return [t for k, v in cache.items() for t in (
+            [v] if k in ("cross_k", "cross_v") else kv_buffers(v))]
     if isinstance(cache, (tuple, list)):
         return [t for v in cache for t in kv_buffers(v)]
     return []
@@ -1800,12 +1877,13 @@ def sync_is_error(on: bool):
 
 
 def decode_run(cfg, params, tokens, max_len: int, cache_dtype,
-               nan_fill=False, sync_check=False):
+               nan_fill=False, sync_check=False, frames=None):
     """`tokens` (B, N) decoded one at a time on the card through
     make_serve_step from an empty cache of `max_len` slots in
     `cache_dtype` (its slot buffers filled with NaN with `nan_fill`), the
-    loop under sync debug "error" with `sync_check`. Returns (logits (B,
-    N, V), the loop's wall seconds between synchronizations)."""
+    loop under sync debug "error" with `sync_check`; with `frames`,
+    setup_cross_cache fills the cross K/V first. Returns (logits (B, N,
+    V), the loop's wall seconds between synchronizations)."""
     from repro_torch.models import backbone
     from repro_torch.train import step as step_mod
     serve = step_mod.make_serve_step(cfg)
@@ -1814,6 +1892,14 @@ def decode_run(cfg, params, tokens, max_len: int, cache_dtype,
     if nan_fill:
         for t in kv_buffers(cache):
             t.fill_(float("nan"))
+    if frames is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        backbone.setup_cross_cache(params, cache, frames, cfg)
+        torch.cuda.synchronize()
+        print(f"  setup_cross_cache (the encoder over {frames.shape[1]} "
+              f"frames, {cfg.num_layers} layers' cross K/V): "
+              f"{time.perf_counter() - t0:.4f} s", flush=True)
     outs = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1825,19 +1911,23 @@ def decode_run(cfg, params, tokens, max_len: int, cache_dtype,
     return torch.cat(outs, 1), time.perf_counter() - t0
 
 
-def serve_expected_launches(cfg):
+def serve_expected_launches(cfg, setups: int):
     """Launches of one prefill forward without gradients (each layer
     once; decode launches none): an attention layer's flash_fwd, an
     rglru layer's rglru_fwd, an mlstm layer's mlstm_fwd, and three
-    gmm_fwd products per MoE layer."""
+    gmm_fwd products per MoE layer; the encoder's layers as the
+    decoder's, in the prefill and in each of `setups` calls of
+    setup_cross_cache."""
     want = {n: 0 for n in FLASH + GMM + SCAN + MLSTM}
-    for t in cfg.layer_types():
-        if t in ("attn", "attn_moe", "mla_moe"):
-            want["flash_fwd"] += 1
-        if t in ("attn_moe", "mla_moe"):
-            want["gmm_fwd"] += 3
-        for n in LAYER_KERNELS.get(t, ((), ()))[0]:
-            want[n] += 1
+    for (pattern, layers), runs in zip(stacks(cfg), (1, 1 + setups)):
+        for i in range(layers):
+            t = pattern[i % len(pattern)]
+            if t in ("attn", "attn_moe", "mla_moe"):
+                want["flash_fwd"] += runs
+            if t in ("attn_moe", "mla_moe"):
+                want["gmm_fwd"] += 3 * runs
+            for n in LAYER_KERNELS.get(t, ((), ()))[0]:
+                want[n] += runs
     return want
 
 
@@ -1892,6 +1982,10 @@ def drive_serve(mods, cfg, card: str):
     params = backbone.init_params(cfg, gen, dtype=f32, device="cuda")
     tokens = torch.randint(0, cfg.vocab_size, (batch, n), generator=gen,
                            device="cuda")
+    # the encoder's frame embeddings at the scale train/data.py draws
+    frames = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                         generator=gen, device="cuda") * 0.02 \
+        if cfg.encoder_layers else None
 
     def report(what, wall):
         print(f"  decode, {what}: {wall:.4f} s, {wall / n * 1e3:.4f} ms "
@@ -1899,13 +1993,14 @@ def drive_serve(mods, cfg, card: str):
               flush=True)
 
     dec, wall = decode_run(cfg, params, tokens, max_len, f32,
-                           sync_check=True)
+                           sync_check=True, frames=frames)
     report("f32 cache, no host sync (sync debug mode error)", wall)
     runs = [("slot buffers NaN-filled", dict(nan_fill=True))]
     if cfg.name == "stablelm-1.6b":
         runs.append(("again, same seed", {}))
     for what, kw in runs:
-        again, wall = decode_run(cfg, params, tokens, max_len, f32, **kw)
+        again, wall = decode_run(cfg, params, tokens, max_len, f32,
+                                 frames=frames, **kw)
         report(what, wall)
         same = torch.equal(again, dec)
         print(f"    bitwise equal to the first run: {same}", flush=True)
@@ -1920,7 +2015,8 @@ def drive_serve(mods, cfg, card: str):
                          "not finite or not (B, N, V)")
     prefill = step_mod.make_prefill_step(cfg, step_mod.RunCfg(
         param_dtype=f32))
-    pre = prefill(params, {"tokens": tokens})
+    pre = prefill(params, {"tokens": tokens} if frames is None else
+                  {"tokens": tokens, "frames": frames})
     torch.cuda.synchronize()
     scale = max(1.0, float(pre.abs().max()))
     err = float((dec - pre).abs().max()) / scale
@@ -1943,7 +2039,7 @@ def drive_serve(mods, cfg, card: str):
               flush=True)
         if not torch.isfinite(dec16).all():
             raise SystemExit("bf16-cache decode not finite")
-    want = serve_expected_launches(cfg)
+    want = serve_expected_launches(cfg, setups=1 + len(runs))
     print(f"  launches over the path: {launches} (want {want})", flush=True)
     if launches != want:
         raise SystemExit(f"{cfg.name}: serve launches {launches}, want "
@@ -1961,7 +2057,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import (deepseek_v2_lite_16b, qwen2_moe_a2_7b,
                                      recurrentgemma_2b, stablelm_1_6b,
-                                     xlstm_350m)
+                                     whisper_medium, xlstm_350m)
     from repro_torch.configs.gpt import GPT_MEDIUM
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
@@ -2045,10 +2141,11 @@ def main() -> int:
         "4096", "--log-every", "1", "--device", "cuda"],
         "batch 1 seq 4096, launcher defaults (bf16 params, remat)",
         busy_groups=("RG-LRU scan kernels",))
-    xl = xlstm_350m.CONFIG
+    xl = xlstm_350m.CONFIG.replace(num_layers=XL_LAYERS)
     xl_launches = drive_launcher(mods, xl, [
-        "--arch", xl.name, "--steps", str(XL_STEPS), "--batch", "4",
-        "--seq", str(XL_SEQ), "--log-every", "1", "--device", "cuda"],
+        "--arch", xl.name, "--layers", str(XL_LAYERS), "--steps",
+        str(XL_STEPS), "--batch", "4", "--seq", str(XL_SEQ), "--log-every",
+        "1", "--device", "cuda"],
         f"batch 4 seq {XL_SEQ}, launcher defaults (bf16 params, remat)")
     # phase 10: DeepSeek-V2-Lite with phase 5's engine arguments and
     # cuts (1.59 G parameters at 2 layers)
@@ -2058,6 +2155,18 @@ def main() -> int:
                            f"weights", dsc, 1, 4, moe=True,
                            first_loss=DS_FIRST_LOSS,
                            param_dtype=torch.bfloat16)
+    # phase 12: Whisper-medium through the launcher
+    wh = whisper_medium.CONFIG
+    t0 = time.perf_counter()
+    wh_launches = drive_launcher(mods, wh, [
+        "--arch", wh.name, "--steps", str(WH_STEPS), "--batch",
+        str(WH_BATCH), "--seq", str(WH_SEQ), "--log-every", "1", "--device",
+        "cuda"], f"and {wh.encoder_layers} encoder layers over "
+        f"{wh.encoder_seq} frames, batch {WH_BATCH} seq {WH_SEQ}, launcher "
+        f"defaults (bf16 params, remat; f32 frames)",
+        busy_kernels=(ENC_FWD_KERNEL,))
+    print(f"[slice] phase 12 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     # phase 11: serving
     print("[serve] card against the CPU", flush=True)
     check_serve_reference()
@@ -2065,7 +2174,7 @@ def main() -> int:
     serve_launches = {
         c.name: drive_serve(mods, c, card)
         for c in (stablelm_1_6b.CONFIG, recurrentgemma_2b.CONFIG,
-                  xlstm_350m.CONFIG, deepseek_v2_lite_16b.CONFIG)}
+                  xlstm_350m.CONFIG, deepseek_v2_lite_16b.CONFIG, wh)}
     print(f"[serve] phase 11 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     names = FLASH + GMM + SCAN + MLSTM
@@ -2074,6 +2183,7 @@ def main() -> int:
                    f"{gpt.name} campaign": camp_launches[n],
                    qwen.name: moe_launches[n], rgc.name: rg_launches[n],
                    xl.name: xl_launches[n], dsc.name: ds_launches[n],
+                   wh.name: wh_launches[n],
                    **{f"{k} serve": v[n] for k, v in serve_launches.items()}}
                for n in names}
 

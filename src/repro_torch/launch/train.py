@@ -36,6 +36,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", default="stablelm-1.6b",
                     choices=list(registry.ARCH_IDS) + ["gpt-medium"])
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the decoder's depth to this many layers")
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
@@ -61,6 +63,8 @@ def main(argv=None, on_step=None) -> list:
                                   "(ROADMAP Queue 1 item 11)")
     cfg = (registry.reduced_config(args.arch) if args.reduced
            else registry.get_config(args.arch))
+    if args.layers is not None:
+        cfg = cfg.replace(num_layers=args.layers)
     if args.shape:
         shape = SHAPES[args.shape]
     else:

@@ -1,17 +1,20 @@
-"""Decoder backbone (counterpart of `repro/models/backbone.py`): init,
-the stack applied as a Python loop over periods (each period optionally
+"""Backbone (counterpart of `repro/models/backbone.py`): init, the
+stack applied as a Python loop over periods (each period optionally
 recomputed in the backward, as `jax.checkpoint` does in the
 reference's scan), the embedding, the LM head and loss, `forward`, and
-decoding: `init_cache` and `decode_step`.
+decoding: `init_cache`, `decode_step` and, for an encoder-decoder model
+(Whisper), `setup_cross_cache`.
 
 Layers are grouped into `num_layers // period` periods
 (period = len(block_pattern)); remainder layers are the "tail". The
 parameter tree keeps the reference's shape and leaf order:
 {"embed", "final_ln", "head" (untied only), "stack": {"scan": (one
 stacked (n_periods, ...) subtree per period position, or None),
-"tail": (unstacked blocks)}}. The decode cache tree is the reference's
-too: {"scan": (one stacked (n_periods, ...) cache per period position),
-"tail": (unstacked caches)}, each KV cache's `pos` stacked per period.
+"tail": (unstacked blocks)}}, and for an encoder-decoder model
+"enc_stack" (a stack of `enc_attn` blocks, `encoder_layers` deep) and
+"enc_final_ln". The decode cache tree is the reference's too: {"scan":
+(one stacked (n_periods, ...) cache per period position), "tail":
+(unstacked caches)}, each KV cache's `pos` stacked per period.
 """
 from __future__ import annotations
 
@@ -25,12 +28,17 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
+# the encoder stack's block pattern
+ENC_PATTERN = ("enc_attn",)
 
-def scan_layout(cfg: ArchConfig) -> Tuple[int, int, int]:
-    """(period, n_periods, n_tail)."""
-    period = len(cfg.block_pattern)
-    n_periods = cfg.num_layers // period
-    return period, n_periods, cfg.num_layers - period * n_periods
+
+def scan_layout(cfg: ArchConfig, pattern=None,
+                num_layers=None) -> Tuple[int, int, int]:
+    """(period, n_periods, n_tail) of the decoder, or of the stack of
+    `num_layers` layers of `pattern` (the encoder's)."""
+    period = len(pattern or cfg.block_pattern)
+    L = cfg.num_layers if num_layers is None else num_layers
+    return period, L // period, L % period
 
 
 def _stack(trees):
@@ -48,10 +56,10 @@ def _unstack(tree, n: int):
     return [td.unflatten([p[i] for p in per_leaf]) for i in range(n)]
 
 
-def init_stack(gen, cfg: ArchConfig, tp: int, dtype,
-               device="cpu") -> Dict[str, Any]:
-    period, n_periods, n_tail = scan_layout(cfg)
-    pattern = cfg.block_pattern
+def init_stack(gen, cfg: ArchConfig, tp: int, dtype, device="cpu",
+               pattern=None, num_layers=None) -> Dict[str, Any]:
+    period, n_periods, n_tail = scan_layout(cfg, pattern, num_layers)
+    pattern = pattern or cfg.block_pattern
     scan_params = []
     for pos in range(period):
         layers = [blocks.init_block(gen, pattern[pos], cfg, tp, dtype,
@@ -69,22 +77,27 @@ def _periods(scan) -> int:
 
 
 def apply_stack(stack_p, x, cfg: ArchConfig, tp: int, *, positions,
-                impl="chunked", remat=True):
-    """Training/prefill over the whole stack. Returns (x, aux_sum).
+                impl="chunked", pattern=None, enc_out=None,
+                enc_positions=None, remat=True):
+    """Training/prefill over the whole stack (the decoder's, or that of
+    `pattern`). Returns (x, aux_sum). `enc_out` and `enc_positions`, the
+    encoder's output and positions, go to every block.
 
     With `remat`, each period runs under torch.utils.checkpoint: its
     activations are recomputed in the backward, as the reference's
     `jax.checkpoint(one_period)` does. Tail layers are not rematted."""
-    pattern = cfg.block_pattern
+    pattern = pattern or cfg.block_pattern
     period = len(pattern)
+    kw = dict(positions=positions, impl=impl)
 
-    def one_period(x, *slices):
+    def one_period(x, enc_out, enc_positions, *slices):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for pos in range(period):
             if slices[pos] is None:
                 continue
             x, a = blocks.apply_block(pattern[pos], slices[pos], x, cfg, tp,
-                                      positions=positions, impl=impl)
+                                      enc_out=enc_out,
+                                      enc_positions=enc_positions, **kw)
             aux = aux + a
         return x, aux
 
@@ -95,15 +108,16 @@ def apply_stack(stack_p, x, cfg: ArchConfig, tp: int, *, positions,
         per_pos = [_unstack(sp, n) for sp in scan]
         for layer in range(n):
             slices = [per_pos[pos][layer] for pos in range(period)]
+            args = (x, enc_out, enc_positions, *slices)
             if remat:
-                x, a = checkpoint(one_period, x, *slices,
-                                  use_reentrant=False)
+                x, a = checkpoint(one_period, *args, use_reentrant=False)
             else:
-                x, a = one_period(x, *slices)
+                x, a = one_period(*args)
             aux = aux + a
     for i, tp_params in enumerate(stack_p["tail"]):
         x, a = blocks.apply_block(pattern[i % period], tp_params, x, cfg,
-                                  tp, positions=positions, impl=impl)
+                                  tp, enc_out=enc_out,
+                                  enc_positions=enc_positions, **kw)
         aux = aux + a
     return x, aux
 
@@ -176,16 +190,32 @@ def init_params(cfg: ArchConfig, gen, tp: int = 1, dtype=torch.bfloat16,
     if tp != 1:
         raise NotImplementedError("vocab padding for tp > 1 is not ported "
                                   "(ROADMAP Queue 1 item 11)")
-    if cfg.encoder_layers:
-        raise NotImplementedError("encoder stacks are not ported yet "
-                                  "(ROADMAP Queue 1 item 10, Whisper)")
     d, v = cfg.d_model, cfg.vocab_size
     p = {"embed": blocks.init_normal(gen, (v, d), 0.02, dtype, device),
          "final_ln": torch.ones((d,), dtype=dtype, device=device),
          "stack": init_stack(gen, cfg, tp, dtype, device)}
     if not cfg.tie_embeddings:
         p["head"] = blocks.init_normal(gen, (d, v), 0.02, dtype, device)
+    if cfg.encoder_layers:
+        p["enc_stack"] = init_stack(gen, cfg, tp, dtype, device,
+                                    pattern=ENC_PATTERN,
+                                    num_layers=cfg.encoder_layers)
+        p["enc_final_ln"] = torch.ones((d,), dtype=dtype, device=device)
     return p
+
+
+def encode(params, frames, cfg: ArchConfig, tp: int = 1, *,
+           impl="chunked", remat=True):
+    """The encoder over frames (B, F, D): the `enc_attn` stack, then
+    RMSNorm. It runs in the dtype `frames` and the weights promote to
+    (f32 frames beside bf16 weights run it in f32), as in the
+    reference."""
+    B, F = frames.shape[:2]
+    enc_pos = torch.arange(F, device=frames.device)[None].expand(B, F)
+    e, _ = apply_stack(params["enc_stack"], frames, cfg, tp,
+                       positions=enc_pos, impl=impl, pattern=ENC_PATTERN,
+                       remat=remat)
+    return blocks.rmsnorm(e, params["enc_final_ln"], cfg.norm_eps), enc_pos
 
 
 def _embed(params, tokens, cfg: ArchConfig):
@@ -214,39 +244,40 @@ def forward(params, tokens, cfg: ArchConfig, tp: int = 1, mesh=None, *,
             impl="chunked", patches=None, frames=None, remat=True):
     """Training/prefill forward. tokens: (B,S) int.
     patches: (B,P,D) vlm stub embeddings occupying the first P positions.
+    frames: (B,F,D) the encoder's frame embeddings (Whisper's stub).
     Returns (logits, aux_loss)."""
-    if mesh is not None:
-        raise NotImplementedError("meshes are not ported "
-                                  "(ROADMAP Queue 1 item 11)")
-    if frames is not None or cfg.encoder_layers:
-        raise NotImplementedError("encoder stacks are not ported yet "
-                                  "(ROADMAP Queue 1 item 10, Whisper)")
+    _no_mesh(mesh)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = _embed(params, tokens, cfg)
     if patches is not None:
         P = patches.shape[1]
         x = torch.cat([patches.to(x.dtype), x[:, P:]], 1)
+    enc_out = enc_pos = None
+    if cfg.encoder_layers:
+        if frames is None:
+            raise ValueError(f"{cfg.name} has an encoder: pass its frames")
+        enc_out, enc_pos = encode(params, frames, cfg, tp, impl=impl,
+                                  remat=remat)
     x, aux = apply_stack(params["stack"], x, cfg, tp, positions=positions,
-                         impl=impl, remat=remat)
+                         impl=impl, enc_out=enc_out, enc_positions=enc_pos,
+                         remat=remat)
     return _logits(params, x, cfg), aux
 
 
-def _check_decoder_only(cfg: ArchConfig, mesh=None) -> None:
+def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("meshes are not ported "
                                   "(ROADMAP Queue 1 item 11)")
-    if cfg.encoder_layers:
-        raise NotImplementedError("encoder stacks are not ported yet "
-                                  "(ROADMAP Queue 1 item 10, Whisper)")
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, tp: int = 1,
                dtype=torch.bfloat16, device=None):
     """The decode cache for `batch` sequences of up to `max_len` tokens
     (a ring of `attention_window` slots for local attention), on
-    `device` (the card unless the caller names another)."""
-    _check_decoder_only(cfg)
+    `device` (the card unless the caller names another). An
+    encoder-decoder model's cross K/V are zeros until
+    `setup_cross_cache` fills them."""
     return init_stack_cache(cfg, batch, max_len, tp, dtype,
                             resolve_device(device, "init_cache"))
 
@@ -255,10 +286,38 @@ def decode_step(params, cache, tokens, cfg: ArchConfig, tp: int = 1,
                 mesh=None):
     """One decode step. tokens: (B, 1) int. Returns (logits (B, 1, V)
     f32, cache); the cache passed in is updated in place and returned."""
-    _check_decoder_only(cfg, mesh)
+    _no_mesh(mesh)
     x = _embed(params, tokens, cfg)
     x, cache = decode_stack(params["stack"], cache, x, cfg, tp)
     return _logits(params, x, cfg), cache
+
+
+@torch.no_grad()
+def setup_cross_cache(params, cache, frames, cfg: ArchConfig, tp: int = 1,
+                      mesh=None, impl="chunked"):
+    """Whisper: run the encoder once over frames (B, F, D), without
+    remat, and write each decoder layer's cross K/V into the cache in
+    place, one layer at a time into its slice of the stacked buffers
+    (cast to their dtype), as `decode_stack` writes back. Returns the
+    cache passed in."""
+    _no_mesh(mesh)
+    enc_out, _ = encode(params, frames, cfg, tp, impl=impl, remat=False)
+
+    def fill(p, c):
+        for buf, t in zip((c["cross_k"], c["cross_v"]),
+                          blocks.cross_kv(p["xattn"], enc_out)):
+            buf.copy_(t)
+
+    stack_p = params["stack"]
+    n = _periods(stack_p["scan"])
+    for sp, sc in zip(stack_p["scan"], cache["scan"]):
+        if sp is not None and "cross_k" in sc:
+            for p, c in zip(_unstack(sp, n), _unstack(sc, n)):
+                fill(p, c)
+    for p, c in zip(stack_p["tail"], cache["tail"]):
+        if "cross_k" in c:
+            fill(p, c)
+    return cache
 
 
 def lm_loss(logits, tokens, loss_mask=None):

@@ -7,13 +7,19 @@
 - `rglru`: RMSNorm -> RG-LRU temporal mixing (models/rglru.py), then
   RMSNorm -> SwiGLU MLP;
 - `mlstm` and `slstm`: RMSNorm -> the xLSTM cell with its own up and
-  down projections (models/xlstm.py), then the residual.
-Each block type also decodes one token against its cache
+  down projections (models/xlstm.py), then the residual;
+- `enc_attn`: `attn` without the causal mask (Whisper's encoder);
+- `attn_cross`: `attn`'s causal self-attention, then RMSNorm -> the
+  non-causal cross-attention over the encoder's output (`cross_attn`),
+  then RMSNorm -> SwiGLU MLP (Whisper's decoder).
+Each decoder block type also decodes one token against its cache
 (`init_block_cache`, `decode_block`): a KV cache for the attention
-blocks (a ring of `attention_window` slots for `local_attn`), MLA's
-latent cache, or the recurrent cell's state.
+blocks (a ring of `attention_window` slots for `local_attn`; for
+`attn_cross` beside the encoder's cross K/V, which
+`backbone.setup_cross_cache` fills), MLA's latent cache, or the
+recurrent cell's state.
 There is no mesh, so the reference's `shard()` constraints have no
-counterpart. The other block types raise NotImplementedError.
+counterpart. An unknown block type raises ValueError.
 """
 from __future__ import annotations
 
@@ -28,11 +34,6 @@ from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.tp_padding import HeadPlan, plan_heads
 
 ATTN_TYPES = ("attn", "local_attn", "attn_moe")
-# where each block type the port lacks is queued (ROADMAP.md)
-_NOT_PORTED = {
-    "attn_cross": "ROADMAP Queue 1 item 10 (Whisper)",
-    "enc_attn": "ROADMAP Queue 1 item 10 (Whisper)",
-}
 # the xLSTM block types: (init, apply, init_state) of their cell
 XLSTM = {"mlstm": (xlstm_mod.init_mlstm, xlstm_mod.apply_mlstm,
                    xlstm_mod.init_mlstm_state),
@@ -40,11 +41,12 @@ XLSTM = {"mlstm": (xlstm_mod.init_mlstm, xlstm_mod.apply_mlstm,
                    xlstm_mod.init_slstm_state)}
 
 
-def _refuse(btype: str):
-    if btype in _NOT_PORTED:
-        raise NotImplementedError(f"block type {btype!r} is not ported "
-                                  f"yet: {_NOT_PORTED[btype]}")
-    if btype not in ATTN_TYPES + ("mla_moe", "rglru") + tuple(XLSTM):
+def _refuse(btype: str, decode: bool = False):
+    """ValueError for an unknown block type, and with `decode` for the
+    encoder's, which has no cache."""
+    if btype not in ATTN_TYPES + ("enc_attn", "attn_cross", "mla_moe",
+                                  "rglru") + tuple(XLSTM) or \
+            (decode and btype == "enc_attn"):
         raise ValueError(btype)
 
 
@@ -111,17 +113,29 @@ def _q_mask(plan: HeadPlan, dtype, device):
     return torch.as_tensor(plan.q_mask, device=device).to(dtype)
 
 
-def _project_qkv(p, x, plan: HeadPlan, cfg, positions):
+def _project_q(p, x, plan: HeadPlan, cfg, positions):
+    """q (B, S, NKV, G, K) with RoPE at `positions`."""
     B, S, _ = x.shape
-    q = einsum("bsd,dhk->bshk", x, p["wq"])
-    k = einsum("bsd,dhk->bshk", x, p["wk"])
-    v = einsum("bsd,dhk->bshk", x, p["wv"])
-    q = att.rope(q, positions, cfg.rope_theta)
-    k = att.rope(k, positions, cfg.rope_theta)
+    q = att.rope(einsum("bsd,dhk->bshk", x, p["wq"]), positions,
+                 cfg.rope_theta)
     if plan.n_q_phys > plan.n_q:     # zero padded q slots (grad-safe)
         q = q * _q_mask(plan, x.dtype, x.device)[None, None, :, None]
-    q = q.reshape(B, S, plan.n_kv_phys, plan.q_per_phys_kv, cfg.kq_dim)
-    return q, k, v
+    return q.reshape(B, S, plan.n_kv_phys, plan.q_per_phys_kv, cfg.kq_dim)
+
+
+def _project_qkv(p, x, plan: HeadPlan, cfg, positions):
+    q = _project_q(p, x, plan, cfg, positions)
+    k = att.rope(einsum("bsd,dhk->bshk", x, p["wk"]), positions,
+                 cfg.rope_theta)
+    return q, k, einsum("bsd,dhk->bshk", x, p["wv"])
+
+
+def cross_kv(p, enc_out):
+    """The encoder's keys and values for one cross-attention, (B, T, N,
+    K) each, in the promoted dtype of `enc_out` and the weights; no
+    RoPE."""
+    return (einsum("bsd,dhk->bshk", enc_out, p["wk"]),
+            einsum("bsd,dhk->bshk", enc_out, p["wv"]))
 
 
 def _attn_out(p, out, plan: HeadPlan, x_dtype):
@@ -139,6 +153,20 @@ def apply_attn(p, x, cfg: ArchConfig, tp: int, *, positions, causal=True,
     q, k, v = _project_qkv(p, x, plan, cfg, positions)
     out = att.attend(q, k, v, positions, positions, causal=causal,
                      window=window, impl=impl)
+    return _attn_out(p, out, plan, x.dtype)
+
+
+def cross_attn(p, x, k, v, cfg: ArchConfig, tp: int, *, positions,
+               k_positions):
+    """Cross-attention of x (B, S, D), its queries with RoPE at
+    `positions`, over the encoder's keys and values k, v (B, T, N, K)
+    (`cross_kv`, or the cross cache) at `k_positions` (B, T):
+    non-causal, through the plain `dense_attention`, where the
+    reference runs it too (impl="dense"); the kernels take one length
+    for q and k. Training and decode share it."""
+    plan = head_plan(cfg, tp)
+    q = _project_q(p, x, plan, cfg, positions)
+    out = att.dense_attention(q, k, v, positions, k_positions, causal=False)
     return _attn_out(p, out, plan, x.dtype)
 
 
@@ -173,8 +201,10 @@ def init_block(gen, btype: str, cfg: ArchConfig, tp: int, dtype,
                 "rnn": rglru_mod.init_rglru(gen, cfg, dtype, device),
                 "ln2": ones(),
                 "mlp": init_mlp(gen, d, cfg.d_ff, dtype, device)}
-    p = {"ln1": ones(), "attn": init_attn(gen, cfg, tp, dtype, device),
-         "ln2": ones()}
+    p = {"ln1": ones(), "attn": init_attn(gen, cfg, tp, dtype, device)}
+    if btype == "attn_cross":
+        p.update(lnx=ones(), xattn=init_attn(gen, cfg, tp, dtype, device))
+    p["ln2"] = ones()
     if btype == "attn_moe":
         p["moe"] = moe_mod.init_moe(gen, cfg, tp, dtype, device)
     else:
@@ -183,8 +213,10 @@ def init_block(gen, btype: str, cfg: ArchConfig, tp: int, dtype,
 
 
 def apply_block(btype: str, p: dict, x, cfg: ArchConfig, tp: int, *,
-                positions=None, impl="chunked"):
-    """Training/prefill path. Returns (x, aux_loss)."""
+                positions=None, impl="chunked", enc_out=None,
+                enc_positions=None):
+    """Training/prefill path. Returns (x, aux_loss). `attn_cross` attends
+    to `enc_out` (B, T, D), the encoder's output at `enc_positions`."""
     _refuse(btype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if btype in XLSTM:
@@ -206,8 +238,14 @@ def apply_block(btype: str, p: dict, x, cfg: ArchConfig, tp: int, *,
         return x + y, aux
     window = cfg.attention_window if btype == "local_attn" else 0
     h = apply_attn(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, tp,
-                   positions=positions, window=window, impl=impl)
+                   positions=positions, causal=btype != "enc_attn",
+                   window=window, impl=impl)
     x = x + h
+    if btype == "attn_cross":
+        k, v = cross_kv(p["xattn"], enc_out)
+        x = x + cross_attn(p["xattn"], rmsnorm(x, p["lnx"], cfg.norm_eps),
+                           k, v, cfg, tp, positions=positions,
+                           k_positions=enc_positions)
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if btype == "attn_moe":
         y, aux = moe_mod.apply_moe(p["moe"], h2, cfg)
@@ -219,9 +257,17 @@ def apply_block(btype: str, p: dict, x, cfg: ArchConfig, tp: int, *,
 def init_block_cache(btype: str, cfg: ArchConfig, batch: int, max_len: int,
                      tp: int, dtype=torch.bfloat16, device="cpu"):
     """The block's decode cache; the recurrent states are f32 whatever
-    `dtype` is, as in the reference."""
-    _refuse(btype)
+    `dtype` is, as in the reference. `attn_cross`'s is {"self": its KV
+    cache, "cross_k", "cross_v": (batch, encoder_seq, N, K)}, zeros
+    until `backbone.setup_cross_cache` writes the encoder's."""
+    _refuse(btype, decode=True)
     plan = head_plan(cfg, tp)
+    if btype == "attn_cross":
+        cross = lambda: torch.zeros((batch, cfg.encoder_seq, plan.n_kv_phys,
+                                     cfg.kq_dim), dtype=dtype, device=device)
+        return {"self": att.init_kv_cache(batch, max_len, plan.n_kv_phys,
+                                          cfg.kq_dim, dtype, device=device),
+                "cross_k": cross(), "cross_v": cross()}
     if btype in ATTN_TYPES:
         ring = btype == "local_attn"
         return att.init_kv_cache(batch, max_len, plan.n_kv_phys,
@@ -237,7 +283,7 @@ def init_block_cache(btype: str, cfg: ArchConfig, batch: int, max_len: int,
 
 def decode_block(btype: str, p: dict, x, cache, cfg: ArchConfig, tp: int):
     """Single-token decode. x: (B, 1, D). Returns (x, new cache)."""
-    _refuse(btype)
+    _refuse(btype, decode=True)
     if btype in XLSTM:
         h, cache = XLSTM[btype][1](p["cell"],
                                    rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
@@ -258,10 +304,23 @@ def decode_block(btype: str, p: dict, x, cache, cfg: ArchConfig, tp: int):
         y = apply_mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
         return x + y, cache
     ring = btype == "local_attn"
-    h, cache = decode_attn(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
-                           cache, cfg, tp, ring=ring,
-                           window=cfg.attention_window if ring else 0)
+    cross = btype == "attn_cross"
+    h, self_c = decode_attn(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
+                            cache["self"] if cross else cache, cfg, tp,
+                            ring=ring,
+                            window=cfg.attention_window if ring else 0)
     x = x + h
+    if cross:
+        cache = dict(cache, self=self_c)
+        # the query's position is the one the self cache just took
+        B, T = cache["cross_k"].shape[:2]
+        x = x + cross_attn(
+            p["xattn"], rmsnorm(x, p["lnx"], cfg.norm_eps), cache["cross_k"],
+            cache["cross_v"], cfg, tp,
+            positions=(self_c["pos"] - 1).expand(B, 1),
+            k_positions=torch.arange(T, device=x.device)[None].expand(B, T))
+    else:
+        cache = self_c
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if btype == "attn_moe":
         y = moe_mod.decode_moe(p["moe"], h2, cfg)

@@ -63,7 +63,6 @@ def all_cells():
 
 def count_params(cfg: ArchConfig) -> int:
     """Analytic parameter count from shapes only (the parameters are
-    built on the meta device, so nothing is allocated). Raises
-    NotImplementedError for a block type the port lacks."""
+    built on the meta device, so nothing is allocated)."""
     params = backbone.init_params(cfg, None, tp=1, device="meta")
     return sum(math.prod(l.shape) for l in tree_leaves(params))

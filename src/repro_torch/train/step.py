@@ -165,7 +165,8 @@ def make_serve_step(cfg: ArchConfig, mesh=None, *, device=None):
     """serve_step(params, cache, tokens) -> (logits (B, 1, V) f32, cache):
     one decode step against the cache (`backbone.decode_step`) without
     gradients, on `device` (the card unless the caller passes another).
-    The cache (from `backbone.init_cache`) is updated in place and
+    The cache (from `backbone.init_cache`, and for an encoder-decoder
+    model filled by `backbone.setup_cross_cache`) is updated in place and
     returned; tokens (B, 1) are moved to the device (no copy when they
     are there already, so a step on the card never waits for the host)."""
     _no_mesh(mesh)

@@ -75,11 +75,13 @@ def trees_close(got, want, tol):
 
 
 def decode_against_jax(cfg, jcfg, seed, b, steps, max_len, cache_dtype, tol,
-                       serve=None):
+                       serve=None, frames=None):
     """The reference's f32 weights (key `seed`) through both decode_steps
     for `steps` tokens from empty caches of `max_len` slots in
     `cache_dtype`: the logits and the whole cache tree after every
-    token. `serve` (port) defaults to backbone.decode_step."""
+    token. `serve` (port) defaults to backbone.decode_step. With
+    `frames` (numpy), each side's setup_cross_cache first fills the
+    cross K/V from its own encoder, and the trees are compared then."""
     jp = jit(lambda k: jbackbone.init_params(jcfg, k, tp=1,
                                              dtype=jnp.float32))(
         jax.random.PRNGKey(seed))
@@ -88,6 +90,12 @@ def decode_against_jax(cfg, jcfg, seed, b, steps, max_len, cache_dtype, tol,
     params, cache = to_port(jp), to_port(jc)
     assert [t.dtype for t in tree_leaves(cache)] == \
         [getattr(torch, str(l.dtype)) for l in jax.tree.leaves(jc)]
+    if frames is not None:
+        jc = jit(lambda p, c, f: jbackbone.setup_cross_cache(p, c, f, jcfg))(
+            jp, jc, jnp.asarray(frames))
+        assert backbone.setup_cross_cache(
+            params, cache, params_from_numpy(frames, "cpu"), cfg) is cache
+        trees_close(cache, jc, tol)
     serve = serve or (lambda p, c, t: backbone.decode_step(p, c, t, cfg))
     jstep = jit(lambda p, c, t: jbackbone.decode_step(p, c, t, jcfg))
     tok = tokens(seed + 1, b, steps, cfg.vocab_size)

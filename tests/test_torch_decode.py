@@ -117,17 +117,48 @@ def test_decode_block_matches_jax(btype):
 
 @pytest.mark.parametrize("call", ["init_block_cache", "decode_block"])
 def test_attn_cross_still_raises(call):
-    """Whisper's decoder block is the next slice: its cache and decode
-    raise, naming the ROADMAP item, and so does init_cache."""
-    cfg = registry.reduced_config("whisper-medium")
-    with pytest.raises(NotImplementedError, match=r"item 10 \(Whisper\)"):
-        if call == "init_block_cache":
-            blocks.init_block_cache("attn_cross", cfg, B, 8, 1)
-        else:
-            blocks.decode_block("attn_cross", {}, torch.zeros(B, 1, 64), {},
-                                cfg, 1)
-    with pytest.raises(NotImplementedError, match="Whisper"):
-        backbone.init_cache(cfg, B, 8, device="cpu")
+    """Whisper's blocks at the two calls that raised until its encoder
+    was ported. `attn_cross` now matches the reference: init_block_cache
+    gives its tree ({"self": a KV cache, "cross_k", "cross_v" of
+    encoder_seq slots}, zeros), and decode_block decodes 6 tokens, f32,
+    over cross K/V set from seeded values (the cross query at the
+    position the self cache just took, the keys without RoPE). The
+    encoder's `enc_attn` has no cache and still raises ValueError at
+    both calls, as the reference's does."""
+    cfg, jcfg = _cfgs("whisper-medium")
+    jc = jblocks.init_block_cache("attn_cross", jcfg, B, 8, 1, jnp.float32)
+    cache = blocks.init_block_cache("attn_cross", cfg, B, 8, 1,
+                                    torch.float32)
+    if call == "init_block_cache":
+        assert sorted(cache) == ["cross_k", "cross_v", "self"]
+        assert tuple(cache["cross_k"].shape) == (B, cfg.encoder_seq, 4, 16)
+        trees_close(cache, jc, 0.0)
+        ref = lambda: jblocks.init_block_cache("enc_attn", jcfg, B, 8, 1)
+        mine = lambda: blocks.init_block_cache("enc_attn", cfg, B, 8, 1)
+    else:
+        jp = jblocks.init_block(jax.random.PRNGKey(8), "attn_cross", jcfg, 1,
+                                jnp.float32)
+        shape = (B, cfg.encoder_seq, 4, 16)
+        jc = dict(jc, cross_k=jnp.asarray(x(30, *shape)),
+                  cross_v=jnp.asarray(x(31, *shape)))
+        p, cache = to_port(jp), to_port(jc)
+        jdec = jit(lambda p, xx, c: jblocks.decode_block(
+            "attn_cross", p, xx, c, jcfg, 1))
+        for t in range(6):
+            xt = x(300 + t, B, 1, cfg.d_model)
+            want, jc = jdec(jp, jnp.asarray(xt), jc)
+            got, cache = blocks.decode_block("attn_cross", p,
+                                             torch.from_numpy(xt), cache,
+                                             cfg, 1)
+            close(got, want, F32_TOL)
+            trees_close(cache, jc, F32_TOL)
+        xt = torch.zeros(B, 1, cfg.d_model)
+        ref = lambda: jblocks.decode_block("enc_attn", jp, jnp.asarray(xt),
+                                           jc, jcfg, 1)
+        mine = lambda: blocks.decode_block("enc_attn", p, xt, cache, cfg, 1)
+    for fn in (ref, mine):
+        with pytest.raises(ValueError):
+            fn()
 
 
 # ---------------------------------------------------------- serve step
