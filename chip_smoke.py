@@ -65,7 +65,7 @@ Phases (each failure exits non-zero):
      the profiled step must show device time in the RG-LRU scan's
      kernels;
   7. slice, xLSTM: the launcher trains xLSTM-350M at full width, its
-     depth cut by --layers from 24 to XL_LAYERS (6 of its 12 (mlstm,
+     depth cut by --layers from 24 to XL_LAYERS (3 of its 12 (mlstm,
      slstm) periods; d_model 1024, 4 heads of 512 in the mLSTM, vocab
      50304, untied head) for XL_STEPS steps at global batch 4, seq XL_SEQ,
      with RunCfg's defaults;
@@ -139,7 +139,28 @@ Phases (each failure exits non-zero):
      the profiled step must show device time in the encoder's
      non-causal flash_fwd (its f32 d-64 instance, which only the
      encoder launches: the bf16 decoder's causal self-attention runs
-     the bf16 one).
+     the bf16 one);
+ 13. meshes (run after phase 12, before phase 11), one rank per card
+     the script finds. On one card: the launcher trains StableLM-2-1.6B
+     at full width (d_model 2048, 32 x 64 heads, d_ff 5632, vocab
+     100352), depth cut to MESH_LAYERS, for MESH_STEPS steps at batch 4,
+     seq 2048, once with --mesh 1x1 over NCCL (its launches counted) and
+     once with --mesh none: the losses and grad norms must be bitwise
+     equal. On N > 1 cards: one spawned rank per card (NCCL, the
+     process group torchrun would give) trains StableLM-2-1.6B at full
+     width and depth on (N/2)x2 (batch 4, seq 2048) and RecurrentGemma-
+     2B at full width and depth on 1xN (batch 1, seq 4096; 10 q / 1 kv
+     heads padded to 12 / 4 slots at N = 4), each twice with one seed;
+     then this process runs each alone on one card, StableLM with
+     --mesh none (its layout at tp 2 is tp 1's) and RecurrentGemma in
+     the tp-N layout with no mesh (--tp N). Every rank's launches must
+     equal the config's count, every rank's losses and grad norms must
+     be the same within each run, and the losses and grad norms must be
+     within MESH_LOSS_TOL and MESH_GNORM_TOL of the one-process run's;
+     whether the two same-seed runs on a mesh are bitwise equal is
+     printed, not gated. Per rank it prints the peak memory and the
+     step times. `python3 chip_smoke.py --only mesh` builds the kernels
+     and runs this phase alone.
 Each engine slice runs setup, record_iteration and 3 x train_iteration
 twice with the same seed; the launcher slices run the launcher twice.
 Losses must be bitwise equal across the two runs, and the GPT, MoE and
@@ -253,10 +274,29 @@ MLSTM_FIRST_MS = {"mlstm_fwd": 6.5571, "mlstm_bwd_dqdk": 9.8827,
                   "mlstm_bwd_dv": 7.1825}
 # the xLSTM-350M slice: steps per launcher run and sequence length
 XL_STEPS, XL_SEQ = 2, 2048
-# its depth on that path: half of its 24 layers, for the script's time
-# limit (the sLSTM's Python loop holds a step at 61-89 s at full depth);
-# phase 11 serves it at full depth
-XL_LAYERS = 12
+# its depth on that path: a quarter of its 24 layers, for the script's
+# time limit (the sLSTM's Python loop holds a step at 61-89 s at full
+# depth; at 12 layers the phase took 271 s and the script 1209 s on a
+# slow host, PERF.md §6); phase 11 serves it at full depth
+XL_LAYERS = 6
+# phase 13, meshes: StableLM-2-1.6B's depth on one card (1x1 against
+# none), launcher steps, and the launcher arguments per model of the run
+# on several cards (full depth)
+MESH_LAYERS, MESH_STEPS = 4, 3
+MESH_ARGS = {"stablelm-1.6b": ["--batch", "4", "--seq", "2048"],
+             "recurrentgemma-2b": ["--batch", "1", "--seq", "4096"]}
+# a mesh's losses and grad norms against one process in the same
+# layout: |mesh - one| over max(1, |one|), and |mesh - one| over |one|.
+# bf16 parameters and activations: the partial sums after wo, w_down and
+# w_out are added over `model` in bf16, and the batch's gradients over
+# `data` in f32 from bf16 halves, where one process sums each in one
+# product. On four H100s (PERF.md §6) sound runs gave losses within
+# 1.401e-05 and 3.264e-05 and grad norms within 1.595e-03 and 4.763e-04;
+# ZeRO-1 without the sum over `data` gave 8.747e-03 and 4.155e-01, and
+# every data rank on one rank's rows 1.938e-02 and 2.363e-01. A norm
+# that counts every copy of a leaf whole on each `model` rank moves by
+# 2e-04 only: the CPU tests (f32, 1e-5) catch that one
+MESH_LOSS_TOL, MESH_GNORM_TOL = 1e-3, 5e-3
 # its mLSTM cells: batch 4 x 4 heads, seq XL_SEQ, head dim 512, chunk
 # 64, f32 q, k, v and log gates
 XL_MLSTM = dict(bh=16, s=XL_SEQ, k=512, chunk=64, dtype=torch.float32)
@@ -1728,7 +1768,8 @@ def drive_campaign(mods, card: str, unbroken):
 
 # the kernels one layer of each type launches (forward, backward) on the
 # launcher's paths
-LAYER_KERNELS = {"rglru": (SCAN[:1], SCAN[1:]),
+LAYER_KERNELS = {"attn": (FLASH[:1], FLASH[1:]),
+                 "rglru": (SCAN[:1], SCAN[1:]),
                  "local_attn": (FLASH[:1], FLASH[1:]),
                  "mlstm": (MLSTM[:1], MLSTM[1:]),
                  "attn_cross": (FLASH[:1], FLASH[1:]),
@@ -1848,6 +1889,190 @@ def drive_launcher(mods, cfg, argv, label, busy_groups=(), busy_kernels=()):
     return launches
 
 
+def free_port() -> int:
+    """A free TCP port on localhost (for a process group's rendezvous)."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_argv(arch: str, mesh: str, *extra) -> list:
+    return ["--arch", arch, "--steps", str(MESH_STEPS), "--log-every", "1",
+            "--device", "cuda", "--mesh", mesh, *MESH_ARGS[arch], *extra]
+
+
+def mesh_one_card(mods) -> dict:
+    """Phase 13 on one card: StableLM-2-1.6B at full width, MESH_LAYERS
+    deep, through the launcher with --mesh 1x1 over NCCL (counted) and
+    with --mesh none; losses and grad norms bitwise equal."""
+    import torch.distributed as dist
+    from repro_torch.configs import stablelm_1_6b
+    cfg = stablelm_1_6b.CONFIG.replace(num_layers=MESH_LAYERS)
+    argv = lambda mesh: mesh_argv(cfg.name, mesh, "--layers",
+                                  str(MESH_LAYERS))
+    print(f"[mesh] {cfg.name}, {MESH_LAYERS} of "
+          f"{stablelm_1_6b.CONFIG.num_layers} layers, --mesh 1x1 against "
+          f"--mesh none", flush=True)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        print(f"  process group: {dist.get_backend()}, world "
+              f"{dist.get_world_size()}", flush=True)
+        hist, launches, _ = run_launcher(mods, argv("1x1"), count=True)
+    finally:
+        dist.destroy_process_group()
+    plain, _, _ = run_launcher(mods, argv("none"), count=True)
+    want = launcher_expected_launches(cfg, MESH_STEPS)
+    print(f"  launches in the mesh path: {launches} (want {want})",
+          flush=True)
+    stats = lambda hs: [(h["loss"], h["grad_norm"]) for h in hs]
+    same = stats(hist) == stats(plain)
+    print(f"  --mesh 1x1 losses and grad norms bitwise --mesh none's: "
+          f"{same}", flush=True)
+    if launches != want or not same or \
+            not all(math.isfinite(h["loss"]) for h in hist):
+        raise SystemExit(f"mesh 1x1: launches {launches} (want {want}), "
+                         f"{stats(hist)} against {stats(plain)}")
+    return {f"{cfg.name} mesh 1x1": launches}
+
+
+def mesh_rank(rank: int, world: int, port: int, jobs: list,
+              out_dir: str) -> None:
+    """One rank of phase 13 on several cards (spawned, one per card): the
+    environment torchrun gives a rank, an NCCL process group, and each
+    job's launcher run twice with one seed; what each run gave goes to
+    `out_dir`/rank<rank>.json."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm as ml
+    from repro_torch.kernels import moe_gmm as gm
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.launch import train as launch
+    mods = (fa, gm, rg, ml)
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", device_id=torch.device("cuda", rank))
+    out = []
+    try:
+        for arch, argv in jobs:
+            runs = []
+            for _ in range(2):
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                for mod in mods:
+                    mod.reset_launches()
+                t0 = time.perf_counter()
+                hist = launch.main(argv)
+                runs.append({"hist": hist, "wall": time.perf_counter() - t0,
+                             "peak": torch.cuda.max_memory_allocated(),
+                             "launches": {n: c for mod in mods
+                                          for n, c in mod.LAUNCHES.items()}})
+            out.append({"arch": arch, "runs": runs})
+    finally:
+        dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def mesh_cards(mods, n: int) -> dict:
+    """Phase 13 on n > 1 cards: StableLM-2-1.6B on (n/2)x2 and
+    RecurrentGemma-2B on 1xn at full width and depth, one spawned rank
+    per card; then each alone on one card in its mesh's layout."""
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.models import registry
+    jobs = [("stablelm-1.6b", f"{n // 2}x2"), ("recurrentgemma-2b", f"1x{n}")]
+    out_dir = ROOT / "build" / "mesh_ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    print(f"[mesh] {n} ranks, one per card: "
+          f"{', '.join(f'{a} on {m}' for a, m in jobs)}", flush=True)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        mesh_rank, args=(n, free_port(), [(a, mesh_argv(a, m))
+                                          for a, m in jobs], str(out_dir)),
+        nprocs=n, start_method="spawn", join=False)
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > 900:
+                raise SystemExit("mesh ranks timed out")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=30)
+    print(f"  ranks done in {time.perf_counter() - t0:.1f} s", flush=True)
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(n)]
+    found, failures = {}, []
+    for j, (arch, mesh) in enumerate(jobs):
+        cfg = registry.get_config(arch)
+        want = launcher_expected_launches(cfg, MESH_STEPS)
+        print(f"[mesh] {arch}, {cfg.num_layers} layers, --mesh {mesh}",
+              flush=True)
+        for r, rank in enumerate(ranks):
+            for i, run in enumerate(rank[j]["runs"]):
+                print(f"  rank {r} run {i + 1}: peak {run['peak']} B, step "
+                      f"wall s {[h['seconds'] for h in run['hist']]}, "
+                      f"launcher wall {run['wall']:.2f} s", flush=True)
+                if run["launches"] != want:
+                    failures.append(f"{arch} rank {r}: launches "
+                                    f"{run['launches']} (want {want})")
+        # per run, every rank's (loss, grad norm) list: the ranks' must
+        # be the same, as both are all-reduced
+        stats = [[[(h["loss"], h["grad_norm"]) for h in rank[j]["runs"][i][
+            "hist"]] for rank in ranks] for i in range(2)]
+        first, again = stats[0][0], stats[1][0]
+        print(f"  (loss, grad norm) {first}; launches a rank "
+              f"{ranks[0][j]['runs'][0]['launches']}", flush=True)
+        for i, run in enumerate(stats):
+            if any(r != run[0] for r in run) or \
+                    len(run[0]) != MESH_STEPS or \
+                    not all(math.isfinite(v) for h in run[0] for v in h):
+                failures.append(f"{arch} run {i + 1}: ranks disagree or "
+                                f"not finite: {run}")
+        print(f"  two same-seed runs on the mesh bitwise equal: "
+              f"{first == again} (largest difference "
+              f"{max(abs(a - b) for x, y in zip(first, again) for a, b in zip(x, y)):.3e})",
+              flush=True)
+        tp = ["--tp", str(n)] if arch == "recurrentgemma-2b" else []
+        print(f"[mesh] {arch} alone on one card, --mesh none "
+              f"{' '.join(tp)}", flush=True)
+        hist, _, _ = run_launcher(mods, mesh_argv(arch, "none", *tp),
+                                  count=True)
+        one = [(h["loss"], h["grad_norm"]) for h in hist]
+        dloss = max(abs(a[0] - b[0]) / max(1.0, abs(b[0]))
+                    for a, b in zip(first, one))
+        dnorm = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(first, one))
+        print(f"  (loss, grad norm) {one}; mesh against one process: "
+              f"losses {dloss:.3e} (tolerance {MESH_LOSS_TOL}), grad norms "
+              f"{dnorm:.3e} (tolerance {MESH_GNORM_TOL})", flush=True)
+        if len(one) != len(first) or not dloss <= MESH_LOSS_TOL or \
+                not dnorm <= MESH_GNORM_TOL:
+            failures.append(f"{arch}: mesh {first} against one process {one}")
+        found[f"{arch} mesh {mesh} (rank 0)"] = ranks[0][j]["runs"][0][
+            "launches"]
+    if failures:
+        raise SystemExit(f"mesh phase: {failures}")
+    return found
+
+
+def drive_mesh(mods) -> dict:
+    """Phase 13 with one rank per card the script finds."""
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    found = mesh_one_card(mods) if n == 1 else mesh_cards(mods, n)
+    print(f"[mesh] phase 13 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return found
+
+
 def kv_buffers(cache) -> list:
     """A decode cache's slot buffers (KV caches, MLA's latent cache):
     what a step may read only where written; and the cross K/V, which
@@ -1922,9 +2147,8 @@ def serve_expected_launches(cfg, setups: int):
     for (pattern, layers), runs in zip(stacks(cfg), (1, 1 + setups)):
         for i in range(layers):
             t = pattern[i % len(pattern)]
-            if t in ("attn", "attn_moe", "mla_moe"):
-                want["flash_fwd"] += runs
             if t in ("attn_moe", "mla_moe"):
+                want["flash_fwd"] += runs
                 want["gmm_fwd"] += 3 * runs
             for n in LAYER_KERNELS.get(t, ((), ()))[0]:
                 want[n] += runs
@@ -2049,7 +2273,13 @@ def drive_serve(mods, cfg, card: str):
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="smoke run of the port on "
+                                 "the GPUs (see the module's docstring)")
+    ap.add_argument("--only", choices=["mesh"],
+                    help="build the kernels and run this phase alone")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2103,6 +2333,15 @@ def main() -> int:
         raise SystemExit(f"rglru_scan: instances {[n for n, _, _ in scan]}, "
                          f"spilling {spilled}, others {others}")
 
+    mods = (fa, gm, rg, ml)
+    if args.only == "mesh":
+        print(json.dumps({"mesh_launches": drive_mesh(mods)}))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     print("[kernels] against the plain versions", flush=True)
     results = check_kernels(fa)
     results.update(check_gmm(gm))
@@ -2118,7 +2357,6 @@ def main() -> int:
                          64)
     check_step_reference(xlstm_350m.reduced().replace(num_layers=4), 200)
 
-    mods = (fa, gm, rg, ml)
     gpt = GPT_MEDIUM
     launches, gpt_losses = drive(
         mods, f"GPT-medium, {gpt.num_layers} layers, dp=2 pp=2 mb=2 batch 8 "
@@ -2167,6 +2405,7 @@ def main() -> int:
         busy_kernels=(ENC_FWD_KERNEL,))
     print(f"[slice] phase 12 in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    mesh_launches = drive_mesh(mods)
     # phase 11: serving
     print("[serve] card against the CPU", flush=True)
     check_serve_reference()
@@ -2184,6 +2423,7 @@ def main() -> int:
                    qwen.name: moe_launches[n], rgc.name: rg_launches[n],
                    xl.name: xl_launches[n], dsc.name: ds_launches[n],
                    wh.name: wh_launches[n],
+                   **{k: v[n] for k, v in mesh_launches.items()},
                    **{f"{k} serve": v[n] for k, v in serve_launches.items()}}
                for n in names}
 

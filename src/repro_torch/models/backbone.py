@@ -15,6 +15,12 @@ stacked (n_periods, ...) subtree per period position, or None),
 "enc_final_ln". The decode cache tree is the reference's too: {"scan":
 (one stacked (n_periods, ...) cache per period position), "tail":
 (unstacked caches)}, each KV cache's `pos` stacked per period.
+
+`param_axes` (and `stack_axes`, `stack_cache_axes`) name every leaf's
+logical axes, the reference's trees. Under a mesh, `init_params` keeps
+the rank's block of each leaf, and `forward` runs the blocks on them:
+the embedding and the head split over `vocab`, the logits the rank's
+vocab block, which `lm_loss` reduces with no gather.
 """
 from __future__ import annotations
 
@@ -26,6 +32,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
+from repro_torch.models.shardings import (SCALAR, axis_index, axis_size,
+                                          from_model, map_axes,
+                                          max_over_model, shard_tree,
+                                          sum_over_batch, to_model)
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 # the encoder stack's block pattern
@@ -56,18 +66,45 @@ def _unstack(tree, n: int):
     return [td.unflatten([p[i] for p in per_leaf]) for i in range(n)]
 
 
+def _stacked_axes(tree):
+    def stack_ax(ax):
+        if tuple(ax) == SCALAR:
+            return (None,)          # stacked scalar -> (n,) vector
+        return (None,) + tuple(ax)
+    return map_axes(stack_ax, tree)
+
+
 def init_stack(gen, cfg: ArchConfig, tp: int, dtype, device="cpu",
-               pattern=None, num_layers=None) -> Dict[str, Any]:
+               pattern=None, num_layers=None, mesh=None) -> Dict[str, Any]:
+    """The stack's parameters; under `mesh`, each layer's are cut to the
+    rank's blocks as soon as they are drawn."""
     period, n_periods, n_tail = scan_layout(cfg, pattern, num_layers)
     pattern = pattern or cfg.block_pattern
+
+    def block(btype):
+        p = blocks.init_block(gen, btype, cfg, tp, dtype, device)
+        if mesh is None:
+            return p
+        return shard_tree(p, blocks.block_axes(btype, cfg), mesh)
+
     scan_params = []
     for pos in range(period):
-        layers = [blocks.init_block(gen, pattern[pos], cfg, tp, dtype,
-                                    device) for _ in range(n_periods)]
+        layers = [block(pattern[pos]) for _ in range(n_periods)]
         scan_params.append(_stack(layers) if layers else None)
-    tail = tuple(blocks.init_block(gen, pattern[i % period], cfg, tp,
-                                   dtype, device) for i in range(n_tail))
+    tail = tuple(block(pattern[i % period]) for i in range(n_tail))
     return {"scan": tuple(scan_params), "tail": tail}
+
+
+def stack_axes(cfg: ArchConfig, pattern=None, num_layers=None):
+    period, n_periods, n_tail = scan_layout(cfg, pattern, num_layers)
+    pattern = pattern or cfg.block_pattern
+    scan_ax = tuple(
+        _stacked_axes(blocks.block_axes(pattern[pos], cfg))
+        if n_periods else None
+        for pos in range(period))
+    tail_ax = tuple(blocks.block_axes(pattern[i % period], cfg)
+                    for i in range(n_tail))
+    return {"scan": scan_ax, "tail": tail_ax}
 
 
 def _periods(scan) -> int:
@@ -78,7 +115,7 @@ def _periods(scan) -> int:
 
 def apply_stack(stack_p, x, cfg: ArchConfig, tp: int, *, positions,
                 impl="chunked", pattern=None, enc_out=None,
-                enc_positions=None, remat=True):
+                enc_positions=None, remat=True, mesh=None):
     """Training/prefill over the whole stack (the decoder's, or that of
     `pattern`). Returns (x, aux_sum). `enc_out` and `enc_positions`, the
     encoder's output and positions, go to every block.
@@ -88,7 +125,7 @@ def apply_stack(stack_p, x, cfg: ArchConfig, tp: int, *, positions,
     `jax.checkpoint(one_period)` does. Tail layers are not rematted."""
     pattern = pattern or cfg.block_pattern
     period = len(pattern)
-    kw = dict(positions=positions, impl=impl)
+    kw = dict(positions=positions, impl=impl, mesh=mesh)
 
     def one_period(x, enc_out, enc_positions, *slices):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -138,6 +175,18 @@ def init_stack_cache(cfg: ArchConfig, batch: int, max_len: int, tp: int,
     return {"scan": scan, "tail": tail}
 
 
+def stack_cache_axes(cfg: ArchConfig, pattern=None, num_layers=None):
+    period, n_periods, n_tail = scan_layout(cfg, pattern, num_layers)
+    pattern = pattern or cfg.block_pattern
+    scan_ax = tuple(
+        _stacked_axes(blocks.block_cache_axes(pattern[pos], cfg))
+        if n_periods else None
+        for pos in range(period))
+    tail_ax = tuple(blocks.block_cache_axes(pattern[i % period], cfg)
+                    for i in range(n_tail))
+    return {"scan": scan_ax, "tail": tail_ax}
+
+
 def _write_back(cache, new) -> None:
     """Each leaf of `new` that is not already `cache`'s own tensor (a KV
     slot is written in place; pos and the recurrent states are new
@@ -184,24 +233,59 @@ def padded_vocab(cfg: ArchConfig) -> int:
 
 
 def init_params(cfg: ArchConfig, gen, tp: int = 1, dtype=torch.bfloat16,
-                device="cpu") -> dict:
+                device="cpu", mesh=None) -> dict:
     """Random init from `gen` (a torch.Generator on `device`; None with
-    device="meta" gives shapes and dtypes only)."""
-    if tp != 1:
-        raise NotImplementedError("vocab padding for tp > 1 is not ported "
-                                  "(ROADMAP Queue 1 item 11)")
-    d, v = cfg.d_model, cfg.vocab_size
+    device="meta" gives shapes and dtypes only) in the physical layout of
+    `tp` (padded heads, and the vocab padded to a multiple of 128 when
+    tp > 1). Under `mesh`, only the rank's blocks are kept: each leaf is
+    drawn whole, in the one-device order, and cut at once, so every mesh
+    of one tp starts from the same model."""
+    d = cfg.d_model
+    v = padded_vocab(cfg) if tp > 1 else cfg.vocab_size
     p = {"embed": blocks.init_normal(gen, (v, d), 0.02, dtype, device),
-         "final_ln": torch.ones((d,), dtype=dtype, device=device),
-         "stack": init_stack(gen, cfg, tp, dtype, device)}
+         "final_ln": torch.ones((d,), dtype=dtype, device=device)}
+    if mesh is not None:
+        p = shard_tree(p, {"embed": ("vocab", None), "final_ln": (None,)},
+                       mesh)
+    p["stack"] = init_stack(gen, cfg, tp, dtype, device, mesh=mesh)
     if not cfg.tie_embeddings:
         p["head"] = blocks.init_normal(gen, (d, v), 0.02, dtype, device)
+        if mesh is not None:
+            p["head"] = shard_tree(p["head"], (None, "vocab"), mesh)
     if cfg.encoder_layers:
         p["enc_stack"] = init_stack(gen, cfg, tp, dtype, device,
                                     pattern=ENC_PATTERN,
-                                    num_layers=cfg.encoder_layers)
+                                    num_layers=cfg.encoder_layers, mesh=mesh)
         p["enc_final_ln"] = torch.ones((d,), dtype=dtype, device=device)
     return p
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    a = {
+        "embed": ("vocab", None),
+        "final_ln": (None,),
+        "stack": stack_axes(cfg),
+    }
+    if not cfg.tie_embeddings:
+        a["head"] = (None, "vocab")
+    if cfg.encoder_layers:
+        a["enc_stack"] = stack_axes(cfg, pattern=ENC_PATTERN,
+                                    num_layers=cfg.encoder_layers)
+        a["enc_final_ln"] = (None,)
+    return a
+
+
+def check_mesh(cfg: ArchConfig, tp: int, mesh) -> None:
+    """Raises unless every block of `cfg` runs split and `tp` is the
+    mesh's `model` extent (nothing without a mesh)."""
+    if mesh is None:
+        return
+    for btype in set(cfg.block_pattern) | (
+            set(ENC_PATTERN) if cfg.encoder_layers else set()):
+        blocks._refuse(btype, mesh=mesh)
+    if tp != axis_size(mesh, "heads"):
+        raise ValueError(f"tp {tp} is not the mesh's model extent "
+                         f"{axis_size(mesh, 'heads')}")
 
 
 def encode(params, frames, cfg: ArchConfig, tp: int = 1, *,
@@ -218,8 +302,17 @@ def encode(params, frames, cfg: ArchConfig, tp: int = 1, *,
     return blocks.rmsnorm(e, params["enc_final_ln"], cfg.norm_eps), enc_pos
 
 
-def _embed(params, tokens, cfg: ArchConfig):
-    x = params["embed"][tokens]
+def _embed(params, tokens, cfg: ArchConfig, mesh=None):
+    """Token embeddings; under a mesh each rank looks up the tokens in
+    its vocab block (zero elsewhere) and the blocks are added up."""
+    emb = params["embed"]
+    if mesh is None:
+        x = emb[tokens]
+    else:
+        idx = tokens - axis_index(mesh, "vocab") * emb.shape[0]
+        hit = (idx >= 0) & (idx < emb.shape[0])
+        x = from_model(emb[torch.where(hit, idx, 0)] *
+                       hit[..., None].to(emb.dtype), mesh)
     if cfg.tie_embeddings:
         # the scale in x's dtype, as jnp's weakly typed Python scalar;
         # filled on the device (a copy from the host would sync a decode)
@@ -228,13 +321,16 @@ def _embed(params, tokens, cfg: ArchConfig):
     return x
 
 
-def _logits(params, x, cfg: ArchConfig):
-    """(B, S, V) f32: the product in the parameters' dtype, then f32."""
+def _logits(params, x, cfg: ArchConfig, mesh=None):
+    """(B, S, V) f32: the product in the parameters' dtype, then f32;
+    under a mesh, V is the rank's vocab block."""
     x = blocks.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    logits = blocks.einsum("bsd,dv->bsv", x, head).float()
-    if head.shape[-1] > cfg.vocab_size:     # mask padded vocab rows
-        iota = torch.arange(head.shape[-1], device=logits.device)
+    logits = blocks.einsum("bsd,dv->bsv", to_model(x, mesh), head).float()
+    v = head.shape[-1]
+    if v * axis_size(mesh, "vocab") > cfg.vocab_size:   # mask padded rows
+        iota = torch.arange(v, device=logits.device) + \
+            axis_index(mesh, "vocab") * v
         logits = torch.where(iota >= cfg.vocab_size,
                              torch.full_like(logits, -1e30), logits)
     return logits
@@ -245,11 +341,14 @@ def forward(params, tokens, cfg: ArchConfig, tp: int = 1, mesh=None, *,
     """Training/prefill forward. tokens: (B,S) int.
     patches: (B,P,D) vlm stub embeddings occupying the first P positions.
     frames: (B,F,D) the encoder's frame embeddings (Whisper's stub).
+    Under `mesh`, params hold the rank's blocks (`init_params(...,
+    mesh=mesh)`), tokens and patches its rows, and the logits are its
+    vocab block.
     Returns (logits, aux_loss)."""
-    _no_mesh(mesh)
+    check_mesh(cfg, tp, mesh)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, mesh)
     if patches is not None:
         P = patches.shape[1]
         x = torch.cat([patches.to(x.dtype), x[:, P:]], 1)
@@ -261,13 +360,13 @@ def forward(params, tokens, cfg: ArchConfig, tp: int = 1, mesh=None, *,
                                   remat=remat)
     x, aux = apply_stack(params["stack"], x, cfg, tp, positions=positions,
                          impl=impl, enc_out=enc_out, enc_positions=enc_pos,
-                         remat=remat)
-    return _logits(params, x, cfg), aux
+                         remat=remat, mesh=mesh)
+    return _logits(params, x, cfg, mesh), aux
 
 
 def _no_mesh(mesh) -> None:
     if mesh is not None:
-        raise NotImplementedError("meshes are not ported "
+        raise NotImplementedError("decoding under a mesh is not ported "
                                   "(ROADMAP Queue 1 item 11)")
 
 
@@ -320,19 +419,32 @@ def setup_cross_cache(params, cache, frames, cfg: ArchConfig, tp: int = 1,
     return cache
 
 
-def lm_loss(logits, tokens, loss_mask=None):
+def lm_loss(logits, tokens, loss_mask=None, mesh=None):
     """Next-token cross entropy. logits: (B,S,V) f32, tokens: (B,S).
 
     The true-class logit is extracted with an iota-masked reduction, as
     in the reference; its backward is elementwise, so it stays
-    deterministic on the card (a gather's backward is a scatter-add)."""
+    deterministic on the card (a gather's backward is a scatter-add).
+    Under a mesh, logits are the rank's vocab block of its rows: the
+    log-sum-exp and the true logit are summed over `model`, and the
+    result is the rank's share of the mean over the global batch (the
+    data ranks' shares add up to it, also where masks make their counts
+    differ)."""
     tgt = tokens[:, 1:]
     lg = logits[:, :-1]
     lse = torch.logsumexp(lg, -1)
-    iota = torch.arange(lg.shape[-1], device=lg.device)
-    true = torch.where(iota == tgt[..., None], lg, 0.0).sum(-1)
+    if mesh is not None:
+        top = max_over_model(lse, mesh)
+        lse = top + torch.log(from_model(torch.exp(lse - top), mesh))
+    iota = torch.arange(lg.shape[-1], device=lg.device) + \
+        axis_index(mesh, "vocab") * lg.shape[-1]
+    true = from_model(torch.where(iota == tgt[..., None], lg, 0.0).sum(-1),
+                      mesh)
     nll = lse - true
     if loss_mask is not None:
         m = loss_mask[:, 1:].float()
-        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
-    return nll.mean()
+        count = sum_over_batch(m.sum(), mesh)
+        return (nll * m).sum() / torch.clamp(count, min=1.0)
+    if mesh is None:
+        return nll.mean()
+    return nll.mean() / axis_size(mesh, "batch")

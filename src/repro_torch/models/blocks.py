@@ -18,8 +18,14 @@ blocks (a ring of `attention_window` slots for `local_attn`; for
 `attn_cross` beside the encoder's cross K/V, which
 `backbone.setup_cross_cache` fills), MLA's latent cache, or the
 recurrent cell's state.
-There is no mesh, so the reference's `shard()` constraints have no
-counterpart. An unknown block type raises ValueError.
+Under a mesh (`models/shardings.py`) the `attn`, `local_attn` and
+`rglru` blocks and the MLP run on the rank's block of their weights,
+split over `model` as `ATTN_AXES`, `MLP_AXES` and `rglru_axes` say: each
+rank projects to its own heads or lanes (the input's gradient summed
+over `model`), and the partial sums after `wo`, `w_down` and `w_out`
+are added up over `model`. The residual stream stays replicated where
+the reference splits it over the sequence (`seq_sp`). Every other block
+type refuses a mesh. An unknown block type raises ValueError.
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
+from repro_torch.models.shardings import (SCALAR, axis_index, axis_size,
+                                          from_model, to_model)
 from repro_torch.models.tp_padding import HeadPlan, plan_heads
 
 ATTN_TYPES = ("attn", "local_attn", "attn_moe")
@@ -41,13 +49,21 @@ XLSTM = {"mlstm": (xlstm_mod.init_mlstm, xlstm_mod.apply_mlstm,
                    xlstm_mod.init_slstm_state)}
 
 
-def _refuse(btype: str, decode: bool = False):
+# the block types that run split under a mesh
+MESH_TYPES = ("attn", "local_attn", "rglru")
+
+
+def _refuse(btype: str, decode: bool = False, mesh=None):
     """ValueError for an unknown block type, and with `decode` for the
-    encoder's, which has no cache."""
+    encoder's, which has no cache; NotImplementedError for a block type
+    that does not run split, under any mesh."""
     if btype not in ATTN_TYPES + ("enc_attn", "attn_cross", "mla_moe",
                                   "rglru") + tuple(XLSTM) or \
             (decode and btype == "enc_attn"):
         raise ValueError(btype)
+    if mesh is not None and btype not in MESH_TYPES:
+        raise NotImplementedError(f"the {btype} block under a mesh is not "
+                                  "ported (ROADMAP Queue 1 item 11)")
 
 
 def _promote(*ts):
@@ -87,9 +103,15 @@ def init_mlp(gen, d, f, dtype, device="cpu"):
     return {"w_gate": nrm(d, f), "w_up": nrm(d, f), "w_down": nrm(f, d)}
 
 
-def apply_mlp(p, x):
+MLP_AXES = {"w_gate": (None, "d_ff"), "w_up": (None, "d_ff"),
+            "w_down": ("d_ff", None)}
+
+
+def apply_mlp(p, x, mesh=None):
+    x = to_model(x, mesh)
     gate = torch.nn.functional.silu(matmul(x, p["w_gate"]).float())
-    return matmul(gate.to(x.dtype) * matmul(x, p["w_up"]), p["w_down"])
+    return from_model(matmul(gate.to(x.dtype) * matmul(x, p["w_up"]),
+                             p["w_down"]), mesh)
 
 
 # -------------------------------------------------------- GQA attention
@@ -109,22 +131,33 @@ def init_attn(gen, cfg: ArchConfig, tp: int, dtype, device="cpu") -> dict:
             "wo": nrm(plan.n_q_phys, k, d)}
 
 
-def _q_mask(plan: HeadPlan, dtype, device):
-    return torch.as_tensor(plan.q_mask, device=device).to(dtype)
+ATTN_AXES = {"wq": (None, "heads", None), "wk": (None, "kv_heads", None),
+             "wv": (None, "kv_heads", None), "wo": ("heads", None, None)}
 
 
-def _project_q(p, x, plan: HeadPlan, cfg, positions):
-    """q (B, S, NKV, G, K) with RoPE at `positions`."""
+def _q_mask(plan: HeadPlan, dtype, device, mesh=None):
+    """The mask of the rank's q slots: the plan's physical slots split
+    evenly over `model` (each rank's q slots group onto its own kv
+    slots, since slot s reads kv slot s // q_per_phys_kv)."""
+    n = plan.n_q_phys // axis_size(mesh, "heads")
+    lo = axis_index(mesh, "heads") * n
+    return torch.as_tensor(plan.q_mask[lo:lo + n], device=device).to(dtype)
+
+
+def _project_q(p, x, plan: HeadPlan, cfg, positions, mesh=None):
+    """q (B, S, NKV, G, K) with RoPE at `positions`, NKV the rank's kv
+    slots."""
     B, S, _ = x.shape
     q = att.rope(einsum("bsd,dhk->bshk", x, p["wq"]), positions,
                  cfg.rope_theta)
     if plan.n_q_phys > plan.n_q:     # zero padded q slots (grad-safe)
-        q = q * _q_mask(plan, x.dtype, x.device)[None, None, :, None]
-    return q.reshape(B, S, plan.n_kv_phys, plan.q_per_phys_kv, cfg.kq_dim)
+        q = q * _q_mask(plan, x.dtype, x.device, mesh)[None, None, :, None]
+    return q.reshape(B, S, plan.n_kv_phys // axis_size(mesh, "kv_heads"),
+                     plan.q_per_phys_kv, cfg.kq_dim)
 
 
-def _project_qkv(p, x, plan: HeadPlan, cfg, positions):
-    q = _project_q(p, x, plan, cfg, positions)
+def _project_qkv(p, x, plan: HeadPlan, cfg, positions, mesh=None):
+    q = _project_q(p, x, plan, cfg, positions, mesh)
     k = att.rope(einsum("bsd,dhk->bshk", x, p["wk"]), positions,
                  cfg.rope_theta)
     return q, k, einsum("bsd,dhk->bshk", x, p["wv"])
@@ -138,22 +171,25 @@ def cross_kv(p, enc_out):
             einsum("bsd,dhk->bshk", enc_out, p["wv"]))
 
 
-def _attn_out(p, out, plan: HeadPlan, x_dtype):
+def _attn_out(p, out, plan: HeadPlan, x_dtype, mesh=None):
+    """The output projection of the rank's heads, summed over `model`."""
     B, S = out.shape[:2]
-    out = out.reshape(B, S, plan.n_q_phys, -1)
+    out = out.reshape(B, S, -1, out.shape[-1])
     if plan.n_q_phys > plan.n_q:
-        out = out * _q_mask(plan, out.dtype, out.device)[None, None, :,
-                                                          None]
-    return einsum("bshk,hkd->bsd", out.to(x_dtype), p["wo"])
+        out = out * _q_mask(plan, out.dtype, out.device, mesh)[None, None,
+                                                                :, None]
+    return from_model(einsum("bshk,hkd->bsd", out.to(x_dtype), p["wo"]),
+                      mesh)
 
 
 def apply_attn(p, x, cfg: ArchConfig, tp: int, *, positions, causal=True,
-               window=0, impl="chunked"):
+               window=0, impl="chunked", mesh=None):
     plan = head_plan(cfg, tp)
-    q, k, v = _project_qkv(p, x, plan, cfg, positions)
+    x = to_model(x, mesh)
+    q, k, v = _project_qkv(p, x, plan, cfg, positions, mesh)
     out = att.attend(q, k, v, positions, positions, causal=causal,
                      window=window, impl=impl)
-    return _attn_out(p, out, plan, x.dtype)
+    return _attn_out(p, out, plan, x.dtype, mesh)
 
 
 def cross_attn(p, x, k, v, cfg: ArchConfig, tp: int, *, positions,
@@ -212,12 +248,61 @@ def init_block(gen, btype: str, cfg: ArchConfig, tp: int, dtype,
     return p
 
 
+def block_axes(btype: str, cfg: ArchConfig) -> dict:
+    """Logical sharding axes mirroring init_block's structure."""
+    _refuse(btype)
+    if btype in ("attn", "local_attn", "enc_attn"):
+        return {"ln1": (None,), "attn": dict(ATTN_AXES),
+                "ln2": (None,), "mlp": dict(MLP_AXES)}
+    if btype == "attn_moe":
+        return {"ln1": (None,), "attn": dict(ATTN_AXES),
+                "ln2": (None,), "moe": moe_mod.moe_axes(cfg)}
+    if btype == "mla_moe":
+        return {"ln1": (None,), "mla": mla_mod.mla_axes(cfg),
+                "ln2": (None,), "moe": moe_mod.moe_axes(cfg)}
+    if btype == "attn_cross":
+        return {"ln1": (None,), "attn": dict(ATTN_AXES),
+                "lnx": (None,), "xattn": dict(ATTN_AXES),
+                "ln2": (None,), "mlp": dict(MLP_AXES)}
+    if btype == "rglru":
+        return {"ln1": (None,), "rnn": rglru_mod.rglru_axes(cfg),
+                "ln2": (None,), "mlp": dict(MLP_AXES)}
+    axes = {"mlstm": xlstm_mod.mlstm_axes, "slstm": xlstm_mod.slstm_axes}
+    return {"ln1": (None,), "cell": axes[btype](cfg)}
+
+
+def block_cache_axes(btype: str, cfg: ArchConfig) -> dict:
+    """Logical sharding axes mirroring init_block_cache's structure."""
+    _refuse(btype, decode=True)
+    kv = {"k": ("batch", None, "kv_heads", None),
+          "v": ("batch", None, "kv_heads", None), "pos": SCALAR}
+    if btype in ATTN_TYPES:
+        return dict(kv)
+    if btype == "mla_moe":
+        return {"ckv": ("batch", None, None),
+                "k_rope": ("batch", None, None), "pos": SCALAR}
+    if btype == "attn_cross":
+        return {"self": dict(kv),
+                "cross_k": ("batch", None, "kv_heads", None),
+                "cross_v": ("batch", None, "kv_heads", None)}
+    if btype == "rglru":
+        return {"h": ("batch", "d_ff"), "conv": ("batch", None, "d_ff")}
+    if btype == "mlstm":
+        return {"C": ("batch", None, None, "d_ff"),
+                "n": ("batch", None, "d_ff"), "m": ("batch", None),
+                "conv": ("batch", None, "d_ff")}
+    return {"h": ("batch", None, None), "c": ("batch", None, None),
+            "n": ("batch", None, None), "m": ("batch", None, None)}
+
+
 def apply_block(btype: str, p: dict, x, cfg: ArchConfig, tp: int, *,
                 positions=None, impl="chunked", enc_out=None,
-                enc_positions=None):
+                enc_positions=None, mesh=None):
     """Training/prefill path. Returns (x, aux_loss). `attn_cross` attends
-    to `enc_out` (B, T, D), the encoder's output at `enc_positions`."""
-    _refuse(btype)
+    to `enc_out` (B, T, D), the encoder's output at `enc_positions`.
+    Under `mesh`, `p` holds the rank's blocks of the weights (only the
+    types in MESH_TYPES run so)."""
+    _refuse(btype, mesh=mesh)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if btype in XLSTM:
         h, _ = XLSTM[btype][1](p["cell"], rmsnorm(x, p["ln1"], cfg.norm_eps),
@@ -232,14 +317,15 @@ def apply_block(btype: str, p: dict, x, cfg: ArchConfig, tp: int, *,
         return x + y, aux
     if btype == "rglru":
         h, _ = rglru_mod.apply_rglru(p["rnn"],
-                                     rmsnorm(x, p["ln1"], cfg.norm_eps), cfg)
+                                     rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
+                                     mesh=mesh)
         x = x + h
-        y = apply_mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+        y = apply_mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), mesh)
         return x + y, aux
     window = cfg.attention_window if btype == "local_attn" else 0
     h = apply_attn(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, tp,
                    positions=positions, causal=btype != "enc_attn",
-                   window=window, impl=impl)
+                   window=window, impl=impl, mesh=mesh)
     x = x + h
     if btype == "attn_cross":
         k, v = cross_kv(p["xattn"], enc_out)
@@ -250,7 +336,7 @@ def apply_block(btype: str, p: dict, x, cfg: ArchConfig, tp: int, *,
     if btype == "attn_moe":
         y, aux = moe_mod.apply_moe(p["moe"], h2, cfg)
     else:
-        y = apply_mlp(p["mlp"], h2)
+        y = apply_mlp(p["mlp"], h2, mesh)
     return x + y, aux
 
 

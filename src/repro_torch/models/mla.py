@@ -14,7 +14,8 @@ Decode caches only the latent c_kv and the rotary key per position
 (`init_mla_cache`) and absorbs `w_uk` into the query and `w_uv` into
 the output (`decode_mla`), in f32 as in the reference.
 
-Not ported yet: the mesh axes (`mla_axes`, ROADMAP Queue 1 item 11).
+`mla_axes` names its weights' logical axes; the block does not run
+split under a mesh yet (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -47,6 +48,23 @@ def init_mla(gen, cfg: ArchConfig, dtype=torch.bfloat16,
     else:
         p["w_q"] = nrm(d, h, qd)
     return p
+
+
+def mla_axes(cfg: ArchConfig) -> dict:
+    """Logical sharding axes mirroring init_mla's structure."""
+    a = {
+        "w_dkv": (None, None),
+        "kv_ln": (None,),
+        "w_uk": (None, "heads", None),
+        "w_uv": (None, "heads", None),
+        "w_o": ("heads", None, None),
+    }
+    if cfg.mla.q_lora_rank:
+        a.update(w_dq=(None, None), q_ln=(None,),
+                 w_uq=(None, "heads", None))
+    else:
+        a["w_q"] = (None, "heads", None)
+    return a
 
 
 def _rmsnorm(x, g, eps=1e-6):

@@ -7,8 +7,9 @@ code, as the reference computes them outside any kernel; the three
 expert products (gate, up, down) run in the grouped-matmul kernels
 (kernels/moe_gmm.py), folded from (E, B, C, .) to (E, B*C, .). The
 shared (always-on) experts are one dense SwiGLU MLP of width
-num_shared * d_expert. There is no mesh, so the reference's `shard()`
-constraints have no counterpart.
+num_shared * d_expert. `moe_axes` names the weights' logical axes; the
+block does not run split under a mesh yet (expert parallelism with
+global routing, ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -52,6 +53,20 @@ def init_moe(gen, cfg: ArchConfig, ep: int, dtype, device="cpu") -> dict:
         p["ws_up"] = _uniform(gen, (d, ds), (d, ds), dtype, device)
         p["ws_down"] = _uniform(gen, (ds, d), (ds, d), dtype, device)
     return p
+
+
+def moe_axes(cfg: ArchConfig) -> dict:
+    """Logical sharding axes mirroring init_moe's structure."""
+    a = {
+        "router": (None, "experts"),
+        "w_gate": ("experts", None, None),
+        "w_up": ("experts", None, None),
+        "w_down": ("experts", None, None),
+    }
+    if cfg.moe.num_shared:
+        a.update(ws_gate=(None, "d_ff"), ws_up=(None, "d_ff"),
+                 ws_down=("d_ff", None))
+    return a
 
 
 def _expert_matmul(x, w):

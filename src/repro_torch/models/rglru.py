@@ -9,6 +9,12 @@ Temporal mixing:   conv1d(width w) -> RG-LRU gated linear recurrence
 Training runs the recurrence through the CUDA scan kernels
 (`ops.rglru_scan`, forward and backward), where the reference takes
 `jax.lax.associative_scan`; decode is the O(1) single-step update.
+
+Under a mesh the recurrence width Dr is split over `model`
+(`rglru_axes`): each rank runs the conv and the scan kernels on its
+Dr/tp lanes, gathers every rank's conv output for the gate products
+(whose weights keep all Dr input rows and the rank's output columns),
+and the partial sums after `w_out` are added up over `model`.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.models.shardings import from_model, gather_model, to_model
 
 _C = 8.0
 
@@ -50,6 +57,18 @@ def init_rglru(gen, cfg: ArchConfig, dtype=torch.bfloat16,
     }
 
 
+def rglru_axes(cfg: ArchConfig) -> dict:
+    """Logical sharding axes mirroring init_rglru's structure."""
+    return {
+        "w_in_x": (None, "d_ff"), "w_in_g": (None, "d_ff"),
+        "conv_w": (None, "d_ff"), "conv_b": ("d_ff",),
+        "w_a": (None, "d_ff"), "b_a": ("d_ff",),
+        "w_x": (None, "d_ff"), "b_x": ("d_ff",),
+        "lam": ("d_ff",),
+        "w_out": ("d_ff", None),
+    }
+
+
 def _conv1d(x, w, b, state: Optional[torch.Tensor]):
     """Causal depthwise conv. x: (B,S,Dr), w: (W,Dr).
     state: (B, W-1, Dr) trailing context (decode) or None (train)."""
@@ -65,11 +84,13 @@ def _conv1d(x, w, b, state: Optional[torch.Tensor]):
     return out + b, new_state
 
 
-def _gates(p, xr):
-    """Gate computations in f32. xr: (B,S,Dr). Returns (a, gated)."""
+def _gates(p, xr, mesh=None):
+    """Gate computations in f32. xr: (B,S,Dr), the rank's lanes under a
+    mesh, whose gate products read every rank's. Returns (a, gated)."""
     xf = xr.float()
-    r = torch.sigmoid(xf @ p["w_a"].float() + p["b_a"])
-    i = torch.sigmoid(xf @ p["w_x"].float() + p["b_x"])
+    xa = gather_model(xf, mesh)
+    r = torch.sigmoid(xa @ p["w_a"].float() + p["b_a"])
+    i = torch.sigmoid(xa @ p["w_x"].float() + p["b_x"])
     log_a = -_C * F.softplus(p["lam"]) * r             # (B,S,Dr) <= 0
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
@@ -85,14 +106,16 @@ def rglru_scan(a, x, h0: Optional[torch.Tensor] = None):
     return ops.rglru_scan(a, x)
 
 
-def apply_rglru(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None
-                ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """x: (B,S,D) -> (B,S,D). state (decode): {"h": (B,Dr), "conv": ...}."""
+def apply_rglru(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None,
+                mesh=None) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x: (B,S,D) -> (B,S,D). state (decode): {"h": (B,Dr), "conv": ...}.
+    Under `mesh`, p holds the rank's blocks (training only)."""
+    x = to_model(x, mesh)
     xr = x @ p["w_in_x"]
     gate = x @ p["w_in_g"]
     conv_state = None if state is None else state["conv"]
     xr, new_conv = _conv1d(xr, p["conv_w"], p["conv_b"], conv_state)
-    a, gated = _gates(p, xr)
+    a, gated = _gates(p, xr, mesh)
     if state is None:
         h = rglru_scan(a, gated)
         new_state = None
@@ -101,7 +124,7 @@ def apply_rglru(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None
         new_state = {"h": h[:, -1], "conv": new_conv}
     # jax.nn.gelu's default is the tanh approximation
     y = (F.gelu(gate.float(), approximate="tanh") * h).to(x.dtype)
-    return y @ p["w_out"], new_state
+    return from_model(y @ p["w_out"], mesh), new_state
 
 
 def init_rglru_state(cfg: ArchConfig, batch: int, dtype=torch.float32,

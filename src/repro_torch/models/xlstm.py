@@ -61,6 +61,20 @@ def init_mlstm(gen, cfg: ArchConfig, dtype=torch.bfloat16,
     }
 
 
+def mlstm_axes(cfg: ArchConfig) -> dict:
+    """Logical sharding axes mirroring init_mlstm's structure."""
+    return {
+        "w_up": (None, "d_ff"), "conv_w": (None, "d_ff"),
+        "conv_b": ("d_ff",),
+        "w_q": ("d_ff", None, None), "w_k": ("d_ff", None, None),
+        "w_v": ("d_ff", None, None),
+        "w_i": ("d_ff", None), "b_i": (None,),
+        "w_f": ("d_ff", None), "b_f": (None,),
+        "skip": ("d_ff",), "ogate_ln": ("d_ff",),
+        "w_down": ("d_ff", None),
+    }
+
+
 def _pad_chunks(chunk: int, q, k, v, log_i, log_f):
     """S (axis 2 of q, k, v; the last axis of the log gates) padded to a
     multiple of `chunk`: q, k, v and log_f by 0, log_i by -1e30, so the
@@ -193,6 +207,18 @@ def init_slstm(gen, cfg: ArchConfig, dtype=torch.bfloat16,
 
 
 SLSTM_STATE = ("h", "c", "n", "m")
+
+
+def slstm_axes(cfg: ArchConfig) -> dict:
+    """Logical sharding axes mirroring init_slstm's structure."""
+    return {
+        "w_zifo": (None, None, None, None),
+        "r_zifo": (None, None, None, None),
+        "b_zifo": (None, None, None),
+        "gn": (None,),
+        "w_ff1": (None, "d_ff"), "w_ff2": (None, "d_ff"),
+        "w_ff3": ("d_ff", None),
+    }
 
 
 def _slstm_step(zin, carry):

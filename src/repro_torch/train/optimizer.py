@@ -12,13 +12,26 @@ leaf order), which keeps the two paths bitwise identical.
 state (`train/step.py`, as the reference's launcher donates it): the
 same arithmetic in the same order, so the same bits, written into m, v,
 master and the parameters leaf after leaf, a slice at a time.
+
+Under a mesh, `adam_update_sharded_` is ZeRO-1's form of it: each
+rank's m, v and master are its block of the optimizer's shardings
+(`opt_shardings`: the parameter's tensor-parallel split, and the first
+undivided dimension that the data extent divides split over the data
+axes, `zero1_pspec`); the gradients are summed over the data axes into
+those blocks, updated with the same arithmetic, and the new parameter
+blocks gathered back over the data axes.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.models.shardings import (DP_AXES, NamedSharding,
+                                          entry_axes, gather_dim, group,
+                                          local_block, mesh_axes,
+                                          reduce_scatter_dim)
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 
@@ -138,18 +151,164 @@ def adam_update_(params, grads, opt_state: dict, cfg: AdamCfg,
     new_p = []
     for i, (p, m, v, ma) in enumerate(zip(flat_p, flat_m, flat_v,
                                           flat_ma)):
-        g = flat_g[i].reshape(-1)
+        g = flat_g[i]
         flat_g[i] = None
         out_dt = p.dtype if param_dtype is None else param_dtype
         if out_dt != p.dtype:
             p = torch.empty(p.shape, dtype=out_dt, device=p.device)
-        mf, vf, maf, pf = (t.view(-1) for t in (m, v, ma, p))
-        for lo in range(0, g.numel(), INPLACE_CHUNK):
-            sl = slice(lo, lo + INPLACE_CHUNK)
-            nm, nv, nma = _moments(cfg, g[sl].float() * scale, mf[sl],
-                                   vf[sl], maf[sl], lr, b1c, b2c)
-            mf[sl], vf[sl], maf[sl] = nm, nv, nma
-            pf[sl] = nma.to(out_dt)
+        _update_leaf_(cfg, g, m, v, ma, p, scale, lr, b1c, b2c)
+        del g
+        new_p.append(p)
+    opt_state["step"] = step
+    return tdef.unflatten(new_p), {"grad_norm": gnorm, "lr": lr}
+
+
+def _update_leaf_(cfg, g, m, v, ma, p, scale, lr, b1c, b2c) -> None:
+    """One leaf's moments, master and parameter (in p's dtype) written in
+    place, a slice at a time."""
+    g = g.reshape(-1)
+    mf, vf, maf, pf = (t.view(-1) for t in (m, v, ma, p))
+    for lo in range(0, g.numel(), INPLACE_CHUNK):
+        sl = slice(lo, lo + INPLACE_CHUNK)
+        nm, nv, nma = _moments(cfg, g[sl].float() * scale, mf[sl], vf[sl],
+                               maf[sl], lr, b1c, b2c)
+        mf[sl], vf[sl], maf[sl] = nm, nv, nma
+        pf[sl] = nma.to(p.dtype)
+
+
+# -------------------------------------------------- ZeRO-1 sharding rule
+def zero1_pspec(pspec: tuple, shape, mesh) -> tuple:
+    """Extend a param spec with DP sharding on the first unsharded dim
+    divisible by the DP extent (ZeRO-1)."""
+    sizes = dict(zip(mesh_axes(mesh), mesh.shape))
+    dp_axes = tuple(a for a in DP_AXES if a in sizes)
+    if not dp_axes:
+        return tuple(pspec)
+    entries = list(pspec) + [None] * (len(shape) - len(pspec))
+    used = {a for e in entries for a in entry_axes(e)}
+    if used & set(dp_axes):          # already DP-sharded (e.g. FSDP)
+        return tuple(entries)
+    for cand in (dp_axes, dp_axes[-1:]):       # full DP, else 'data' only
+        dp = 1
+        for a in cand:
+            dp *= sizes[a]
+        for i, (e, s) in enumerate(zip(entries, shape)):
+            if e is None and s % dp == 0 and s >= dp:
+                entries[i] = cand if len(cand) > 1 else cand[0]
+                return tuple(entries)
+    return tuple(entries)
+
+
+def opt_shardings(param_specs, param_shardings, mesh) -> dict:
+    """Shardings tree for init_opt_state's output.
+
+    param_specs: tree of ShapeDtype; param_shardings: the matching tree
+    of NamedSharding."""
+    z1 = tree_map(
+        lambda spec, sh: NamedSharding(
+            mesh, zero1_pspec(sh.spec, spec.shape, mesh)),
+        param_specs, param_shardings)
+    return {"m": z1, "v": z1, "master": z1,
+            "step": NamedSharding(mesh, ())}
+
+
+def dp_split(sh: NamedSharding):
+    """(dim, axes): the dimension a sharding splits over data axes and
+    those axes, or (None, ())."""
+    for i, e in enumerate(sh.spec):
+        axes = tuple(a for a in entry_axes(e) if a in DP_AXES)
+        if axes:
+            return i, axes
+    return None, ()
+
+
+def reduce_grad(g, sh: NamedSharding):
+    """The gradient of one rank's rows summed over the data axes, in
+    f32, kept as this rank's block of `sh`'s data split."""
+    g = g.float()
+    mesh = sh.mesh
+    dim, used = dp_split(sh)
+    rest = group(mesh, [a for a in DP_AXES if a not in used])
+    if rest is not None:
+        g = g.contiguous()
+        dist.all_reduce(g, group=rest)
+    if used:
+        g = reduce_scatter_dim(g, dim, group(mesh, used))
+    return g
+
+
+def data_block(x, sh: NamedSharding):
+    """An own copy of this rank's block of `sh`'s data split of x, a
+    tensor whole over the data axes (x itself where it splits nothing
+    over data)."""
+    dim, used = dp_split(sh)
+    if not used:
+        return x
+    spec = tuple(used if i == dim else None for i in range(x.dim()))
+    return local_block(x, spec, sh.mesh).clone()
+
+
+def gather_over_data(x, sh: NamedSharding):
+    """The whole of `sh`'s data split from every data rank's block (x
+    itself where it splits nothing over data)."""
+    dim, used = dp_split(sh)
+    return gather_dim(x, dim, group(sh.mesh, used)) if used else x
+
+
+@torch.no_grad()
+def adam_update_sharded_(params, grads, opt_state: dict, cfg: AdamCfg,
+                         param_shardings: list, opt_shardings_: list,
+                         param_dtype=torch.bfloat16):
+    """ZeRO-1 AdamW in place under a mesh; returns (params, stats).
+
+    params: the rank's blocks of the parameters (of `param_shardings`,
+    one NamedSharding per leaf in leaf order); grads: a list of the
+    gradients of the parameters as the forward used them (each whole
+    over the data axes, from this rank's rows), consumed; opt_state:
+    the rank's blocks of m, v and master (of `opt_shardings_`). The
+    gradients are summed over the data axes into the optimizer's
+    blocks, the norm is taken over every rank's blocks (each counted
+    once), and each new parameter block is gathered over the data axes
+    where the parameter is not split over them. With one rank the
+    arithmetic is adam_update_'s, in the same order."""
+    flat_p, tdef = tree_flatten(params)
+    step = opt_state["step"] + 1
+    shards, partials = [], []
+    for i, sh in enumerate(opt_shardings_):
+        g = reduce_grad(grads[i], sh)
+        grads[i] = None
+        part = torch.sum(torch.square(g))
+        shards.append(g)
+        partials.append(part / sh.copies() if sh.copies() > 1 else part)
+    total = sum(partials)
+    dist.all_reduce(total)
+    gnorm = torch.sqrt(total)
+    scale = _clip_scale(cfg, gnorm)
+    lr = _schedule(cfg, step)
+    b1c = 1.0 - cfg.b1 ** step.float()
+    b2c = 1.0 - cfg.b2 ** step.float()
+    flat_m = tdef.flatten_up_to(opt_state["m"])
+    flat_v = tdef.flatten_up_to(opt_state["v"])
+    flat_ma = tdef.flatten_up_to(opt_state["master"])
+    new_p = []
+    for i, (p, m, v, ma) in enumerate(zip(flat_p, flat_m, flat_v,
+                                          flat_ma)):
+        g = shards[i]
+        shards[i] = None
+        out_dt = p.dtype if param_dtype is None else param_dtype
+        psh = param_shardings[i]
+        if dp_split(psh)[1]:           # the parameter is the block (FSDP)
+            if out_dt != p.dtype:
+                p = torch.empty(p.shape, dtype=out_dt, device=p.device)
+            _update_leaf_(cfg, g, m, v, ma, p, scale, lr, b1c, b2c)
+        else:
+            blk = torch.empty(m.shape, dtype=out_dt, device=m.device)
+            _update_leaf_(cfg, g, m, v, ma, blk, scale, lr, b1c, b2c)
+            blk = gather_over_data(blk, opt_shardings_[i])
+            if out_dt == p.dtype:
+                p.copy_(blk)
+            else:
+                p = blk
         del g
         new_p.append(p)
     opt_state["step"] = step
