@@ -27,7 +27,9 @@ Phases (each failure exits non-zero):
      S 1500, f32 and bf16, the ratio is printed, not gated); torch.bmm
      for the
      grouped expert matmul, which each of its three kernels must beat at
-     both shapes of each MoE path; both timed in turns with the kernel;
+     both shapes of each MoE path (at a rank's shapes of Qwen's at 1x4,
+     f32 and bf16, the times are printed, not gated); both timed in
+     turns with the kernel;
      none for the RG-LRU
      scan and the chunkwise mLSTM); the mLSTM's dq/dk kernel's dC
      workspace against its plain reverse pass, the dv kernel on that
@@ -141,26 +143,31 @@ Phases (each failure exits non-zero):
      encoder launches: the bf16 decoder's causal self-attention runs
      the bf16 one);
  13. meshes (run after phase 12, before phase 11), one rank per card
-     the script finds. On one card: the launcher trains StableLM-2-1.6B
-     at full width (d_model 2048, 32 x 64 heads, d_ff 5632, vocab
-     100352), depth cut to MESH_LAYERS, for MESH_STEPS steps at batch 4,
-     seq 2048, once with --mesh 1x1 over NCCL (its launches counted) and
-     once with --mesh none: the losses and grad norms must be bitwise
-     equal. On N > 1 cards: one spawned rank per card (NCCL, the
-     process group torchrun would give) trains StableLM-2-1.6B at full
-     width and depth on (N/2)x2 (batch 4, seq 2048) and RecurrentGemma-
-     2B at full width and depth on 1xN (batch 1, seq 4096; 10 q / 1 kv
-     heads padded to 12 / 4 slots at N = 4), each twice with one seed;
-     then this process runs each alone on one card, StableLM with
-     --mesh none (its layout at tp 2 is tp 1's) and RecurrentGemma in
-     the tp-N layout with no mesh (--tp N). Every rank's launches must
-     equal the config's count, every rank's losses and grad norms must
-     be the same within each run, and the losses and grad norms must be
-     within MESH_LOSS_TOL and MESH_GNORM_TOL of the one-process run's;
-     whether the two same-seed runs on a mesh are bitwise equal is
-     printed, not gated. Per rank it prints the peak memory and the
-     step times. `python3 chip_smoke.py --only mesh` builds the kernels
-     and runs this phase alone.
+     the script finds. On one card: the launcher trains each model of
+     MESH_ONE at full width for MESH_STEPS steps (StableLM-2-1.6B 4
+     layers, batch 4, seq 2048; Qwen1.5-MoE-A2.7B and DeepSeek-V2-Lite
+     2 layers, batch 2, seq 2048; xLSTM-350M one (mlstm, slstm) period,
+     batch 4, seq 256; Whisper-medium 2 encoder and 2 decoder layers,
+     batch 8, seq 448), all with --mesh 1x1 over one NCCL process group
+     (the launches counted), then all with --mesh none: each model's
+     losses and grad norms must be bitwise equal. On N > 1 cards: one
+     spawned rank per card (NCCL, the process group torchrun would give)
+     runs `mesh_jobs(N)`, each job twice with one seed: StableLM-2-1.6B
+     full on (N/2)x2, RecurrentGemma-2B full on 1xN (10 q / 1 kv heads
+     padded to 12 / 4 slots at N = 4), Qwen1.5-MoE-A2.7B and
+     DeepSeek-V2-Lite at full width and depth on 1xN (their experts
+     split over the cards; no card holds either whole), the two at 2
+     layers on 1xN and (N/2)x2, xLSTM-350M at 4 layers on 1xN and
+     Whisper-medium full on 1xN. Then this process runs every job but
+     the full MoE ones alone on one card in its mesh's tp layout with no
+     mesh (--tp T; one run serves every job whose layout is the same).
+     Every rank's launches must equal the config's count, every rank's
+     losses and grad norms must be the same within each run and
+     finite, the two same-seed runs bitwise equal, and the losses and
+     grad norms within MESH_LOSS_TOL and MESH_GNORM_TOL of the
+     one-process run's. Per rank it prints the peak memory and the step
+     times. `python3 chip_smoke.py --only mesh` builds the kernels and
+     runs this phase alone.
 Each engine slice runs setup, record_iteration and 3 x train_iteration
 twice with the same seed; the launcher slices run the launcher twice.
 Losses must be bitwise equal across the two runs, and the GPT, MoE and
@@ -263,6 +270,12 @@ GMM_DOWN = dict(GMM_SLICE, k=1408, n=2048)
 # the DeepSeek path's: 64 experts, B*C = 2 * 240 tokens
 GMM_DS = dict(GMM_SLICE, e=64, m=480)
 GMM_DS_DOWN = dict(GMM_DS, k=1408, n=2048)
+# a rank's expert products in phase 13's Qwen1.5-MoE-A2.7B at 1x4: 15
+# of its 60 experts, B*C = 4 * 171 tokens, bf16 under the launcher (f32
+# too, at the f32 tolerance); timed beside torch.bmm, not gated
+GMM_RANK = [dict(GMM_SLICE, e=15, m=684, dtype=dt, **kn)
+            for dt in (torch.float32, torch.bfloat16)
+            for kn in ({}, dict(k=1408, n=2048))]
 # chunkwise mLSTM: max |kernel - plain| over max |plain| per output (f32
 # sums over K = 512 and the chunk in other orders; bf16 h rounds to 8
 # bits, the gradients are f32 from the same bf16 inputs)
@@ -279,19 +292,56 @@ XL_STEPS, XL_SEQ = 2, 2048
 # depth; at 12 layers the phase took 271 s and the script 1209 s on a
 # slow host, PERF.md §6); phase 11 serves it at full depth
 XL_LAYERS = 6
-# phase 13, meshes: StableLM-2-1.6B's depth on one card (1x1 against
-# none), launcher steps, and the launcher arguments per model of the run
-# on several cards (full depth)
-MESH_LAYERS, MESH_STEPS = 4, 3
-MESH_ARGS = {"stablelm-1.6b": ["--batch", "4", "--seq", "2048"],
-             "recurrentgemma-2b": ["--batch", "1", "--seq", "4096"]}
+# phase 13, meshes: launcher steps; on one card (1x1 against none) each
+# model at full width with its launcher arguments, depth and sequence
+# cut for the script's time (the sLSTM's loop grows with the sequence)
+MESH_STEPS = 3
+MESH_ONE = (("stablelm-1.6b", ["--layers", "4", "--batch", "4", "--seq",
+                               "2048"]),
+            ("qwen2-moe-a2.7b", ["--layers", "2", "--batch", "2", "--seq",
+                                 "2048"]),
+            ("deepseek-v2-lite-16b", ["--layers", "2", "--batch", "2",
+                                      "--seq", "2048"]),
+            ("xlstm-350m", ["--layers", "2", "--batch", "4", "--seq",
+                            "256"]),
+            ("whisper-medium", ["--layers", "2", "--encoder-layers", "2",
+                                "--batch", str(WH_BATCH), "--seq",
+                                str(WH_SEQ)]))
+MOE_ARGS = ["--batch", "4", "--seq", "2048"]
+
+
+def mesh_jobs(n: int) -> list:
+    """Phase 13's runs on n > 1 cards, (arch, mesh, launcher arguments,
+    whether one process on one card runs it too for comparison): at 1xn
+    a rank of Qwen1.5-MoE-A2.7B or DeepSeek-V2-Lite at full depth holds
+    a quarter of its 14.3 G or 16.2 G parameters, and no card holds the
+    whole with its Adam state."""
+    moe = ("qwen2-moe-a2.7b", "deepseek-v2-lite-16b")
+    # the full MoE models first, while the rank's allocator is fresh
+    return [*[(arch, f"1x{n}", MOE_ARGS, False) for arch in moe],
+            ("stablelm-1.6b", f"{n // 2}x2", ["--batch", "4", "--seq",
+                                             "2048"], True),
+            ("recurrentgemma-2b", f"1x{n}", ["--batch", "1", "--seq",
+                                             "4096"], True),
+            *[(arch, mesh, MOE_ARGS + ["--layers", "2"], True)
+              for arch in moe
+              for mesh in dict.fromkeys((f"1x{n}", f"{n // 2}x2"))],
+            ("xlstm-350m", f"1x{n}", ["--layers", "4", "--batch", "4",
+                                      "--seq", "512"], True),
+            ("whisper-medium", f"1x{n}", ["--batch", str(WH_BATCH), "--seq",
+                                          str(WH_SEQ)], True)]
+
+
 # a mesh's losses and grad norms against one process in the same
 # layout: |mesh - one| over max(1, |one|), and |mesh - one| over |one|.
 # bf16 parameters and activations: the partial sums after wo, w_down and
 # w_out are added over `model` in bf16, and the batch's gradients over
 # `data` in f32 from bf16 halves, where one process sums each in one
-# product. On four H100s (PERF.md §6) sound runs gave losses within
-# 1.401e-05 and 3.264e-05 and grad norms within 1.595e-03 and 4.763e-04;
+# product. On four H100s (PERF.md §6) sound runs of every job of
+# mesh_jobs(4) gave losses within 3.264e-05 and grad norms within
+# 7.423e-04 (the embedding's rows summed in f32 on both sides: summed in
+# bf16, one token at a time, a 2x2 run's grad norm was up to 8.342e-03
+# off one process's);
 # ZeRO-1 without the sum over `data` gave 8.747e-03 and 4.155e-01, and
 # every data rank on one rank's rows 1.938e-02 and 2.363e-01. A norm
 # that counts every copy of a leaf whole on each `model` rank moves by
@@ -752,7 +802,8 @@ def gmm_instances(gm, fn, tries: int = 5):
 def check_gmm(gm):
     """The three grouped-matmul kernels against their plain versions at
     the MoE paths' gate/up and down shapes (Qwen1.5-MoE's and
-    DeepSeek-V2-Lite's) and at ragged small shapes
+    DeepSeek-V2-Lite's, and a rank's of Qwen's at 1x4, GMM_RANK) and at
+    ragged small shapes
     that cut every edge of gmm_mma_kernel's tile (rows no multiple of
     MMA_BM = 128, reductions no multiple of the 32 f32 / 64 bf16 R tile,
     columns no multiple of 8), with the wide and the narrow copies;
@@ -774,7 +825,7 @@ def check_gmm(gm):
              # wide bf16: K 72 = 64 + 8, N 136 = 128 + 8, M 200
              dict(e=3, m=200, k=72, n=136, dtype=bf16),
              # the path's 342 tokens with K and N short of the tiles
-             dict(e=2, m=342, k=40, n=24, dtype=f32)]
+             dict(e=2, m=342, k=40, n=24, dtype=f32), *GMM_RANK]
     gen = torch.Generator(device="cuda").manual_seed(4321)
     results, shapes = {}, {n: [] for n in GMM}
     for c in cases:
@@ -818,9 +869,9 @@ def check_gmm(gm):
         if ran != want_ran:
             raise SystemExit(f"grouped matmul at {label} ran {ran}, not "
                              f"{want_ran}")
-        if c in (GMM_SLICE, GMM_DOWN, GMM_DS, GMM_DS_DOWN):
+        if c in (GMM_SLICE, GMM_DOWN, GMM_DS, GMM_DS_DOWN, *GMM_RANK):
             timed = {nm: {"max_abs_err": errs[nm]} for nm in GMM}
-            time_gmm(gm, timed, c, x, w, dy)
+            time_gmm(gm, timed, c, x, w, dy, gate=c not in GMM_RANK)
             for nm in GMM:
                 shapes[nm].append({"shape": label, **timed[nm]})
             if c == GMM_SLICE:
@@ -831,10 +882,10 @@ def check_gmm(gm):
     return results
 
 
-def time_gmm(gm, results, shape, x, w, dy):
+def time_gmm(gm, results, shape, x, w, dy, gate=True):
     """Times of the three kernels, their plain versions and torch.bmm at
-    one of the path's shapes, each kernel and torch.bmm in turns; each
-    kernel must be faster than torch.bmm."""
+    one of the path's shapes, each kernel and torch.bmm in turns; with
+    `gate`, each kernel must be faster than torch.bmm."""
     reps = 10
     calls = {
         "gmm_fwd": (lambda: gm.gmm_fwd(x, w), lambda: gm.gmm_fwd_ref(x, w),
@@ -852,13 +903,14 @@ def time_gmm(gm, results, shape, x, w, dy):
         r["plain_ms"] = time_ms(plain, reps)
         r["bound_ms"], r["bound_by"] = bound(*work, shape["dtype"])
         print(f"  {name} at E={shape['e']} M={shape['m']} K={shape['k']} "
-              f"N={shape['n']}: {r['ms']:.4f} ms, plain "
+              f"N={shape['n']} {str(shape['dtype'])[6:]}: {r['ms']:.4f} ms, "
+              f"plain "
               f"{r['plain_ms']:.4f} ms, torch.bmm {r['library_ms']:.4f} "
               f"ms (kernel / bmm {r['ms'] / r['library_ms']:.3f}), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}); "
               f"{work[0] / r['ms'] / 1e9:.2f} TFLOP/s", flush=True)
     slow = [n for n in GMM if results[n]["ms"] >= results[n]["library_ms"]]
-    if slow:
+    if slow and gate:
         raise SystemExit(f"{slow} not faster than torch.bmm at {shape}")
 
 
@@ -1766,14 +1818,18 @@ def drive_campaign(mods, card: str, unbroken):
     return total
 
 
-# the kernels one layer of each type launches (forward, backward) on the
-# launcher's paths
-LAYER_KERNELS = {"attn": (FLASH[:1], FLASH[1:]),
-                 "rglru": (SCAN[:1], SCAN[1:]),
-                 "local_attn": (FLASH[:1], FLASH[1:]),
-                 "mlstm": (MLSTM[:1], MLSTM[1:]),
-                 "attn_cross": (FLASH[:1], FLASH[1:]),
-                 "enc_attn": (FLASH[:1], FLASH[1:])}
+# the kernels one layer of each type launches on the launcher's paths,
+# (forward, backward), each {kernel: launches}: an MoE layer's attention
+# and three expert products (gate, up, down), each with its dx and dw in
+# the backward; the sLSTM launches none
+_ATTN = ({"flash_fwd": 1}, {"flash_bwd_dkdv": 1, "flash_bwd_dq": 1})
+_MOE = ({**_ATTN[0], "gmm_fwd": 3},
+        {**_ATTN[1], "gmm_bwd_dx": 3, "gmm_bwd_dw": 3})
+LAYER_KERNELS = {"attn": _ATTN, "local_attn": _ATTN, "attn_cross": _ATTN,
+                 "enc_attn": _ATTN, "attn_moe": _MOE, "mla_moe": _MOE,
+                 "rglru": ({"rglru_fwd": 1}, {"rglru_bwd": 1}),
+                 "mlstm": ({"mlstm_fwd": 1},
+                           {"mlstm_bwd_dqdk": 1, "mlstm_bwd_dv": 1})}
 
 
 def stacks(cfg):
@@ -1794,11 +1850,11 @@ def launcher_expected_launches(cfg, steps: int):
     for pattern, layers in stacks(cfg):
         period, n_periods, _ = scan_layout(cfg, pattern, layers)
         for i in range(layers):
-            fwd, bwd = LAYER_KERNELS.get(pattern[i % period], ((), ()))
-            for n in fwd:
-                want[n] += 2 if i < period * n_periods else 1
-            for n in bwd:
-                want[n] += 1
+            fwd, bwd = LAYER_KERNELS.get(pattern[i % period], ({}, {}))
+            for n, c in fwd.items():
+                want[n] += c * (2 if i < period * n_periods else 1)
+            for n, c in bwd.items():
+                want[n] += c
     return {n: steps * c for n, c in want.items()}
 
 
@@ -1897,23 +1953,33 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def mesh_argv(arch: str, mesh: str, *extra) -> list:
+def mesh_argv(arch: str, mesh: str, args, *extra) -> list:
     return ["--arch", arch, "--steps", str(MESH_STEPS), "--log-every", "1",
-            "--device", "cuda", "--mesh", mesh, *MESH_ARGS[arch], *extra]
+            "--device", "cuda", "--mesh", mesh, *args, *extra]
+
+
+def launcher_config(argv):
+    """The config the launcher trains for `argv` (its --arch, --layers
+    and --encoder-layers)."""
+    from repro_torch.launch import train as launch
+    from repro_torch.models import registry
+    args = launch.parse_args(argv)
+    cfg = registry.get_config(args.arch)
+    if args.layers is not None:
+        cfg = cfg.replace(num_layers=args.layers)
+    if args.encoder_layers is not None:
+        cfg = cfg.replace(encoder_layers=args.encoder_layers)
+    return cfg
 
 
 def mesh_one_card(mods) -> dict:
-    """Phase 13 on one card: StableLM-2-1.6B at full width, MESH_LAYERS
-    deep, through the launcher with --mesh 1x1 over NCCL (counted) and
-    with --mesh none; losses and grad norms bitwise equal."""
+    """Phase 13 on one card: every model of MESH_ONE through the launcher
+    with --mesh 1x1 over one NCCL process group (counted), then with
+    --mesh none; each model's losses and grad norms bitwise equal."""
     import torch.distributed as dist
-    from repro_torch.configs import stablelm_1_6b
-    cfg = stablelm_1_6b.CONFIG.replace(num_layers=MESH_LAYERS)
-    argv = lambda mesh: mesh_argv(cfg.name, mesh, "--layers",
-                                  str(MESH_LAYERS))
-    print(f"[mesh] {cfg.name}, {MESH_LAYERS} of "
-          f"{stablelm_1_6b.CONFIG.num_layers} layers, --mesh 1x1 against "
-          f"--mesh none", flush=True)
+    print(f"[mesh] --mesh 1x1 against --mesh none: "
+          f"{', '.join(a for a, _ in MESH_ONE)}", flush=True)
+    runs = {}
     dist.init_process_group("nccl",
                             init_method=f"tcp://localhost:{free_port()}",
                             rank=0, world_size=1,
@@ -1921,22 +1987,37 @@ def mesh_one_card(mods) -> dict:
     try:
         print(f"  process group: {dist.get_backend()}, world "
               f"{dist.get_world_size()}", flush=True)
-        hist, launches, _ = run_launcher(mods, argv("1x1"), count=True)
+        for arch, args in MESH_ONE:
+            t0 = time.perf_counter()
+            print(f"[mesh] {arch} {' '.join(args)} --mesh 1x1", flush=True)
+            hist, launches, _ = run_launcher(
+                mods, mesh_argv(arch, "1x1", args), count=True)
+            runs[arch] = [hist, launches, time.perf_counter() - t0]
     finally:
         dist.destroy_process_group()
-    plain, _, _ = run_launcher(mods, argv("none"), count=True)
-    want = launcher_expected_launches(cfg, MESH_STEPS)
-    print(f"  launches in the mesh path: {launches} (want {want})",
-          flush=True)
+    found, failures = {}, []
     stats = lambda hs: [(h["loss"], h["grad_norm"]) for h in hs]
-    same = stats(hist) == stats(plain)
-    print(f"  --mesh 1x1 losses and grad norms bitwise --mesh none's: "
-          f"{same}", flush=True)
-    if launches != want or not same or \
-            not all(math.isfinite(h["loss"]) for h in hist):
-        raise SystemExit(f"mesh 1x1: launches {launches} (want {want}), "
-                         f"{stats(hist)} against {stats(plain)}")
-    return {f"{cfg.name} mesh 1x1": launches}
+    for arch, args in MESH_ONE:
+        hist, launches, secs = runs[arch]
+        t0 = time.perf_counter()
+        print(f"[mesh] {arch} {' '.join(args)} --mesh none", flush=True)
+        plain, _, _ = run_launcher(mods, mesh_argv(arch, "none", args),
+                                   count=True)
+        cfg = launcher_config(mesh_argv(arch, "none", args))
+        want = launcher_expected_launches(cfg, MESH_STEPS)
+        same = stats(hist) == stats(plain)
+        print(f"  {arch}: launches in the mesh path {launches} (want "
+              f"{want}); --mesh 1x1 losses and grad norms bitwise --mesh "
+              f"none's: {same}; {secs:.1f} s at 1x1, "
+              f"{time.perf_counter() - t0:.1f} s with none", flush=True)
+        if launches != want or not same or \
+                not all(math.isfinite(h["loss"]) for h in hist):
+            failures.append(f"{arch}: launches {launches} (want {want}), "
+                            f"{stats(hist)} against {stats(plain)}")
+        found[f"{cfg.name} {cfg.num_layers} layers mesh 1x1"] = launches
+    if failures:
+        raise SystemExit(f"mesh 1x1: {failures}")
+    return found
 
 
 def mesh_rank(rank: int, world: int, port: int, jobs: list,
@@ -1944,7 +2025,7 @@ def mesh_rank(rank: int, world: int, port: int, jobs: list,
     """One rank of phase 13 on several cards (spawned, one per card): the
     environment torchrun gives a rank, an NCCL process group, and each
     job's launcher run twice with one seed; what each run gave goes to
-    `out_dir`/rank<rank>.json."""
+    `out_dir`/rank<rank>.json, written anew after each job."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
                       MASTER_PORT=str(port))
@@ -1960,7 +2041,7 @@ def mesh_rank(rank: int, world: int, port: int, jobs: list,
     dist.init_process_group("nccl", device_id=torch.device("cuda", rank))
     out = []
     try:
-        for arch, argv in jobs:
+        for argv in jobs:
             runs = []
             for _ in range(2):
                 gc.collect()
@@ -1974,31 +2055,40 @@ def mesh_rank(rank: int, world: int, port: int, jobs: list,
                              "peak": torch.cuda.max_memory_allocated(),
                              "launches": {n: c for mod in mods
                                           for n, c in mod.LAUNCHES.items()}})
-            out.append({"arch": arch, "runs": runs})
+            out.append(runs)
+            # after every job, so a later job's failure leaves these
+            with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+                json.dump(out, f)
     finally:
         dist.destroy_process_group()
-    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
-        json.dump(out, f)
+
+
+def layout(cfg, tp: int) -> list:
+    """The shapes of every parameter in the tp layout (padded heads,
+    experts and vocab)."""
+    from repro_torch.models import backbone
+    from repro_torch.tree import tree_leaves
+    return [tuple(t.shape) for t in tree_leaves(
+        backbone.init_params(cfg, None, tp=tp, device="meta"))]
 
 
 def mesh_cards(mods, n: int) -> dict:
-    """Phase 13 on n > 1 cards: StableLM-2-1.6B on (n/2)x2 and
-    RecurrentGemma-2B on 1xn at full width and depth, one spawned rank
-    per card; then each alone on one card in its mesh's layout."""
+    """Phase 13 on n > 1 cards: `mesh_jobs(n)` on one spawned rank per
+    card, then the compared ones alone on one card in their mesh's
+    layout."""
     import shutil
     import torch.multiprocessing as mp
-    from repro_torch.models import registry
-    jobs = [("stablelm-1.6b", f"{n // 2}x2"), ("recurrentgemma-2b", f"1x{n}")]
+    jobs = mesh_jobs(n)
+    argvs = [mesh_argv(a, m, args) for a, m, args, _ in jobs]
     out_dir = ROOT / "build" / "mesh_ranks"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
-    print(f"[mesh] {n} ranks, one per card: "
-          f"{', '.join(f'{a} on {m}' for a, m in jobs)}", flush=True)
+    print(f"[mesh] {n} ranks, one per card: " + "; ".join(
+        " ".join([a, m, *g]) for a, m, g, _ in jobs), flush=True)
     t0 = time.perf_counter()
-    ctx = mp.start_processes(
-        mesh_rank, args=(n, free_port(), [(a, mesh_argv(a, m))
-                                          for a, m in jobs], str(out_dir)),
-        nprocs=n, start_method="spawn", join=False)
+    ctx = mp.start_processes(mesh_rank, args=(n, free_port(), argvs,
+                                              str(out_dir)),
+                             nprocs=n, start_method="spawn", join=False)
     try:
         while not ctx.join(timeout=5):
             if time.perf_counter() - t0 > 900:
@@ -2011,43 +2101,56 @@ def mesh_cards(mods, n: int) -> dict:
     print(f"  ranks done in {time.perf_counter() - t0:.1f} s", flush=True)
     ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
              for r in range(n)]
-    found, failures = {}, []
-    for j, (arch, mesh) in enumerate(jobs):
-        cfg = registry.get_config(arch)
+    found, failures, alone = {}, [], {}
+    for j, ((arch, mesh, args, compared), argv) in enumerate(zip(jobs,
+                                                                 argvs)):
+        cfg = launcher_config(argv)
         want = launcher_expected_launches(cfg, MESH_STEPS)
-        print(f"[mesh] {arch}, {cfg.num_layers} layers, --mesh {mesh}",
-              flush=True)
+        label = f"{arch} {cfg.num_layers} layers --mesh {mesh}"
+        print(f"[mesh] {label} {' '.join(args)}", flush=True)
         for r, rank in enumerate(ranks):
-            for i, run in enumerate(rank[j]["runs"]):
+            for i, run in enumerate(rank[j]):
                 print(f"  rank {r} run {i + 1}: peak {run['peak']} B, step "
                       f"wall s {[h['seconds'] for h in run['hist']]}, "
                       f"launcher wall {run['wall']:.2f} s", flush=True)
                 if run["launches"] != want:
-                    failures.append(f"{arch} rank {r}: launches "
+                    failures.append(f"{label} rank {r}: launches "
                                     f"{run['launches']} (want {want})")
         # per run, every rank's (loss, grad norm) list: the ranks' must
         # be the same, as both are all-reduced
-        stats = [[[(h["loss"], h["grad_norm"]) for h in rank[j]["runs"][i][
-            "hist"]] for rank in ranks] for i in range(2)]
+        stats = [[[(h["loss"], h["grad_norm"]) for h in rank[j][i]["hist"]]
+                  for rank in ranks] for i in range(2)]
         first, again = stats[0][0], stats[1][0]
         print(f"  (loss, grad norm) {first}; launches a rank "
-              f"{ranks[0][j]['runs'][0]['launches']}", flush=True)
+              f"{ranks[0][j][0]['launches']}", flush=True)
         for i, run in enumerate(stats):
             if any(r != run[0] for r in run) or \
                     len(run[0]) != MESH_STEPS or \
                     not all(math.isfinite(v) for h in run[0] for v in h):
-                failures.append(f"{arch} run {i + 1}: ranks disagree or "
+                failures.append(f"{label} run {i + 1}: ranks disagree or "
                                 f"not finite: {run}")
         print(f"  two same-seed runs on the mesh bitwise equal: "
               f"{first == again} (largest difference "
               f"{max(abs(a - b) for x, y in zip(first, again) for a, b in zip(x, y)):.3e})",
               flush=True)
-        tp = ["--tp", str(n)] if arch == "recurrentgemma-2b" else []
-        print(f"[mesh] {arch} alone on one card, --mesh none "
-              f"{' '.join(tp)}", flush=True)
-        hist, _, _ = run_launcher(mods, mesh_argv(arch, "none", *tp),
-                                  count=True)
-        one = [(h["loss"], h["grad_norm"]) for h in hist]
+        if first != again:
+            failures.append(f"{label}: same-seed runs {first} and {again}")
+        found[f"{label} (rank 0)"] = ranks[0][j][0]["launches"]
+        if not compared:
+            continue
+        tp = int(mesh.split("x")[-1])
+        key = (arch, tuple(args), str(layout(cfg, tp)))
+        if key not in alone:
+            print(f"[mesh] {arch} {cfg.num_layers} layers alone on one "
+                  f"card, --mesh none --tp {tp}", flush=True)
+            hist, _, _ = run_launcher(
+                mods, mesh_argv(arch, "none", args, "--tp", str(tp)),
+                count=True)
+            alone[key] = [(h["loss"], h["grad_norm"]) for h in hist]
+        else:
+            print(f"  tp {tp}'s layout is an earlier one-process run's",
+                  flush=True)
+        one = alone[key]
         dloss = max(abs(a[0] - b[0]) / max(1.0, abs(b[0]))
                     for a, b in zip(first, one))
         dnorm = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(first, one))
@@ -2056,9 +2159,8 @@ def mesh_cards(mods, n: int) -> dict:
               f"{dnorm:.3e} (tolerance {MESH_GNORM_TOL})", flush=True)
         if len(one) != len(first) or not dloss <= MESH_LOSS_TOL or \
                 not dnorm <= MESH_GNORM_TOL:
-            failures.append(f"{arch}: mesh {first} against one process {one}")
-        found[f"{arch} mesh {mesh} (rank 0)"] = ranks[0][j]["runs"][0][
-            "launches"]
+            failures.append(f"{label}: mesh {first} against one process "
+                            f"{one}")
     if failures:
         raise SystemExit(f"mesh phase: {failures}")
     return found
@@ -2147,11 +2249,8 @@ def serve_expected_launches(cfg, setups: int):
     for (pattern, layers), runs in zip(stacks(cfg), (1, 1 + setups)):
         for i in range(layers):
             t = pattern[i % len(pattern)]
-            if t in ("attn_moe", "mla_moe"):
-                want["flash_fwd"] += runs
-                want["gmm_fwd"] += 3 * runs
-            for n in LAYER_KERNELS.get(t, ((), ()))[0]:
-                want[n] += runs
+            for n, c in LAYER_KERNELS.get(t, ({}, {}))[0].items():
+                want[n] += c * runs
     return want
 
 

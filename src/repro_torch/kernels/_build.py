@@ -4,8 +4,10 @@ At first use, every `csrc/*.cu` source is compiled by its own `nvcc`
 process (all started together) into a shared library with a plain C
 interface under `<repo>/build/repro_torch_kernels/<hash>/`, where the
 hash covers the sources and the flags, so an edited source rebuilds and
-an unchanged one loads at once. A missing `nvcc` or a failed build
-raises: no caller falls back to the plain PyTorch versions on the card.
+an unchanged one loads at once. nvcc's output is kept beside each
+library (`lib<name>.log`) and read back when the library is reused. A
+missing `nvcc` or a failed build raises: no caller falls back to the
+plain PyTorch versions on the card.
 """
 from __future__ import annotations
 
@@ -69,7 +71,8 @@ class KernelLibraries:
     """The loaded libraries plus what their build cost: `seconds` is
     the wall time of the build (0 when every library was already built
     for these sources) and `log` holds nvcc's output (registers, shared
-    memory and spills of every kernel, from -Xptxas -v)."""
+    memory and spills of every kernel, from -Xptxas -v), from this
+    build or the one that made the library."""
 
     def __init__(self):
         self.libs: Dict[str, ctypes.CDLL] = {}
@@ -112,7 +115,7 @@ def libraries() -> KernelLibraries:
     procs = {}
     for name in SIGNATURES:
         so = _target(name)
-        if so.exists():
+        if so.with_suffix(".log").exists():       # written after the .so
             continue
         so.parent.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".tmp{os.getpid()}")
@@ -123,15 +126,16 @@ def libraries() -> KernelLibraries:
     failed = []
     for name, (so, tmp, proc) in procs.items():
         log, _ = proc.communicate()
-        out.log[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
             continue
         os.replace(tmp, so)
+        so.with_suffix(".log").write_text(log)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     out.seconds = time.perf_counter() - t0 if procs else 0.0
     for name, sigs in SIGNATURES.items():
+        out.log[name] = _target(name).with_suffix(".log").read_text()
         lib = ctypes.CDLL(str(_target(name)))
         for fn, argtypes in sigs.items():
             getattr(lib, fn).argtypes = argtypes

@@ -21,6 +21,11 @@ registered architecture the port has, on one device or, under
         -m repro_torch.launch.train --arch stablelm-1.6b --reduced \\
         --mesh 1x2 --device cpu --steps 4 --batch 2 --seq 32
 
+    # expert parallel: Qwen1.5-MoE-A2.7B's 60 experts, 15 a card:
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch qwen2-moe-a2.7b --mesh 1x4 \\
+        --steps 3 --batch 4 --seq 2048
+
 Under `--mesh`, the process group is torchrun's (or the caller's, when
 it is already initialized): NCCL on `--device cuda` and gloo on
 `--device cpu`, never the other. Rank 0 prints and writes checkpoints;
@@ -58,6 +63,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the decoder's depth to this many layers")
+    ap.add_argument("--encoder-layers", type=int, default=None,
+                    help="cut the encoder's depth to this many layers")
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
@@ -106,6 +113,8 @@ def main(argv=None, on_step=None) -> list:
            else registry.get_config(args.arch))
     if args.layers is not None:
         cfg = cfg.replace(num_layers=args.layers)
+    if args.encoder_layers is not None:
+        cfg = cfg.replace(encoder_layers=args.encoder_layers)
     if args.shape:
         shape = SHAPES[args.shape]
     else:

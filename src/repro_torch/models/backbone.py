@@ -276,42 +276,49 @@ def param_axes(cfg: ArchConfig) -> dict:
 
 
 def check_mesh(cfg: ArchConfig, tp: int, mesh) -> None:
-    """Raises unless every block of `cfg` runs split and `tp` is the
-    mesh's `model` extent (nothing without a mesh)."""
+    """Raises ValueError unless every block of `cfg` splits over the
+    mesh's `model` extent and `tp` is that extent (nothing without a
+    mesh)."""
     if mesh is None:
         return
     for btype in set(cfg.block_pattern) | (
             set(ENC_PATTERN) if cfg.encoder_layers else set()):
-        blocks._refuse(btype, mesh=mesh)
+        blocks.check_split(btype, cfg, axis_size(mesh, "heads"))
     if tp != axis_size(mesh, "heads"):
         raise ValueError(f"tp {tp} is not the mesh's model extent "
                          f"{axis_size(mesh, 'heads')}")
 
 
 def encode(params, frames, cfg: ArchConfig, tp: int = 1, *,
-           impl="chunked", remat=True):
+           impl="chunked", remat=True, mesh=None):
     """The encoder over frames (B, F, D): the `enc_attn` stack, then
     RMSNorm. It runs in the dtype `frames` and the weights promote to
     (f32 frames beside bf16 weights run it in f32), as in the
-    reference."""
+    reference. Under `mesh`, the rank's rows of frames."""
     B, F = frames.shape[:2]
     enc_pos = torch.arange(F, device=frames.device)[None].expand(B, F)
     e, _ = apply_stack(params["enc_stack"], frames, cfg, tp,
                        positions=enc_pos, impl=impl, pattern=ENC_PATTERN,
-                       remat=remat)
+                       remat=remat, mesh=mesh)
     return blocks.rmsnorm(e, params["enc_final_ln"], cfg.norm_eps), enc_pos
 
 
 def _embed(params, tokens, cfg: ArchConfig, mesh=None):
     """Token embeddings; under a mesh each rank looks up the tokens in
-    its vocab block (zero elsewhere) and the blocks are added up."""
+    its vocab block (zero elsewhere) and the blocks are added up. The
+    lookup is `embedding`'s, whose backward sums a row's gradients in
+    f32 before it rounds them to the table's dtype; an indexing backward
+    adds them one at a time in that dtype, and in bf16 a frequent
+    token's sum then loses its small terms (the more, the more rows one
+    rank sums)."""
     emb = params["embed"]
+    lookup = torch.nn.functional.embedding
     if mesh is None:
-        x = emb[tokens]
+        x = lookup(tokens, emb)
     else:
         idx = tokens - axis_index(mesh, "vocab") * emb.shape[0]
         hit = (idx >= 0) & (idx < emb.shape[0])
-        x = from_model(emb[torch.where(hit, idx, 0)] *
+        x = from_model(lookup(torch.where(hit, idx, 0), emb) *
                        hit[..., None].to(emb.dtype), mesh)
     if cfg.tie_embeddings:
         # the scale in x's dtype, as jnp's weakly typed Python scalar;
@@ -342,8 +349,8 @@ def forward(params, tokens, cfg: ArchConfig, tp: int = 1, mesh=None, *,
     patches: (B,P,D) vlm stub embeddings occupying the first P positions.
     frames: (B,F,D) the encoder's frame embeddings (Whisper's stub).
     Under `mesh`, params hold the rank's blocks (`init_params(...,
-    mesh=mesh)`), tokens and patches its rows, and the logits are its
-    vocab block.
+    mesh=mesh)`), tokens, patches and frames its rows, and the logits
+    are its vocab block.
     Returns (logits, aux_loss)."""
     check_mesh(cfg, tp, mesh)
     B, S = tokens.shape
@@ -357,7 +364,10 @@ def forward(params, tokens, cfg: ArchConfig, tp: int = 1, mesh=None, *,
         if frames is None:
             raise ValueError(f"{cfg.name} has an encoder: pass its frames")
         enc_out, enc_pos = encode(params, frames, cfg, tp, impl=impl,
-                                  remat=remat)
+                                  remat=remat, mesh=mesh)
+        # every decoder layer's cross K/V projects it to the rank's kv
+        # slots: its gradient is summed over `model` once, here
+        enc_out = to_model(enc_out, mesh)
     x, aux = apply_stack(params["stack"], x, cfg, tp, positions=positions,
                          impl=impl, enc_out=enc_out, enc_positions=enc_pos,
                          remat=remat, mesh=mesh)

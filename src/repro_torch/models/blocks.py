@@ -18,14 +18,17 @@ blocks (a ring of `attention_window` slots for `local_attn`; for
 `attn_cross` beside the encoder's cross K/V, which
 `backbone.setup_cross_cache` fills), MLA's latent cache, or the
 recurrent cell's state.
-Under a mesh (`models/shardings.py`) the `attn`, `local_attn` and
-`rglru` blocks and the MLP run on the rank's block of their weights,
-split over `model` as `ATTN_AXES`, `MLP_AXES` and `rglru_axes` say: each
-rank projects to its own heads or lanes (the input's gradient summed
-over `model`), and the partial sums after `wo`, `w_down` and `w_out`
-are added up over `model`. The residual stream stays replicated where
-the reference splits it over the sequence (`seq_sp`). Every other block
-type refuses a mesh. An unknown block type raises ValueError.
+Under a mesh (`models/shardings.py`) every block type trains on the
+rank's block of its weights, split over `model` as `block_axes` says:
+each rank projects to its own heads, lanes or experts (the input's
+gradient summed over `model`), and the partial sums after the output
+projections are added up over `model`. `attn_cross` projects the
+encoder's output, which enters the decoder's tensor-parallel regions
+once (`backbone.forward`), to its own kv slots. The residual stream
+stays replicated where the reference splits it over the sequence
+(`seq_sp`). Decoding runs on one device only. An unknown block type
+raises ValueError, and so does a split that the block's heads do not
+allow (`check_split`).
 """
 from __future__ import annotations
 
@@ -49,21 +52,23 @@ XLSTM = {"mlstm": (xlstm_mod.init_mlstm, xlstm_mod.apply_mlstm,
                    xlstm_mod.init_slstm_state)}
 
 
-# the block types that run split under a mesh
-MESH_TYPES = ("attn", "local_attn", "rglru")
-
-
-def _refuse(btype: str, decode: bool = False, mesh=None):
+def _refuse(btype: str, decode: bool = False):
     """ValueError for an unknown block type, and with `decode` for the
-    encoder's, which has no cache; NotImplementedError for a block type
-    that does not run split, under any mesh."""
+    encoder's, which has no cache."""
     if btype not in ATTN_TYPES + ("enc_attn", "attn_cross", "mla_moe",
                                   "rglru") + tuple(XLSTM) or \
             (decode and btype == "enc_attn"):
         raise ValueError(btype)
-    if mesh is not None and btype not in MESH_TYPES:
-        raise NotImplementedError(f"the {btype} block under a mesh is not "
-                                  "ported (ROADMAP Queue 1 item 11)")
+
+
+def check_split(btype: str, cfg: ArchConfig, tp: int) -> None:
+    """ValueError where a block of `btype` cannot split over `tp` model
+    ranks: MLA and the mLSTM have no head padding, so tp must divide
+    their heads (the attention blocks pad theirs, `plan_heads`)."""
+    _refuse(btype)
+    if btype in ("mla_moe", "mlstm") and cfg.num_heads % tp:
+        raise ValueError(f"the {btype} block's {cfg.num_heads} heads do "
+                         f"not split over tp {tp}")
 
 
 def _promote(*ts):
@@ -165,8 +170,8 @@ def _project_qkv(p, x, plan: HeadPlan, cfg, positions, mesh=None):
 
 def cross_kv(p, enc_out):
     """The encoder's keys and values for one cross-attention, (B, T, N,
-    K) each, in the promoted dtype of `enc_out` and the weights; no
-    RoPE."""
+    K) each (N the kv slots of `p`: under a mesh the rank's), in the
+    promoted dtype of `enc_out` and the weights; no RoPE."""
     return (einsum("bsd,dhk->bshk", enc_out, p["wk"]),
             einsum("bsd,dhk->bshk", enc_out, p["wv"]))
 
@@ -193,17 +198,18 @@ def apply_attn(p, x, cfg: ArchConfig, tp: int, *, positions, causal=True,
 
 
 def cross_attn(p, x, k, v, cfg: ArchConfig, tp: int, *, positions,
-               k_positions):
+               k_positions, mesh=None):
     """Cross-attention of x (B, S, D), its queries with RoPE at
     `positions`, over the encoder's keys and values k, v (B, T, N, K)
     (`cross_kv`, or the cross cache) at `k_positions` (B, T):
     non-causal, through the plain `dense_attention`, where the
     reference runs it too (impl="dense"); the kernels take one length
-    for q and k. Training and decode share it."""
+    for q and k. Training and decode share it; under `mesh` it runs the
+    rank's heads."""
     plan = head_plan(cfg, tp)
-    q = _project_q(p, x, plan, cfg, positions)
+    q = _project_q(p, to_model(x, mesh), plan, cfg, positions, mesh)
     out = att.dense_attention(q, k, v, positions, k_positions, causal=False)
-    return _attn_out(p, out, plan, x.dtype)
+    return _attn_out(p, out, plan, x.dtype, mesh)
 
 
 def decode_attn(p, x, cache, cfg: ArchConfig, tp: int, *, window=0,
@@ -300,20 +306,21 @@ def apply_block(btype: str, p: dict, x, cfg: ArchConfig, tp: int, *,
                 enc_positions=None, mesh=None):
     """Training/prefill path. Returns (x, aux_loss). `attn_cross` attends
     to `enc_out` (B, T, D), the encoder's output at `enc_positions`.
-    Under `mesh`, `p` holds the rank's blocks of the weights (only the
-    types in MESH_TYPES run so)."""
-    _refuse(btype, mesh=mesh)
+    Under `mesh`, `p` holds the rank's blocks of the weights and x its
+    rows (and `enc_out` has entered the tensor-parallel region)."""
+    _refuse(btype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if btype in XLSTM:
         h, _ = XLSTM[btype][1](p["cell"], rmsnorm(x, p["ln1"], cfg.norm_eps),
-                               cfg)
+                               cfg, mesh=mesh)
         return x + h, aux
     if btype == "mla_moe":
         h = mla_mod.apply_mla(p["mla"], rmsnorm(x, p["ln1"], cfg.norm_eps),
-                              positions, cfg, impl=impl)
+                              positions, cfg, impl=impl, mesh=mesh)
         x = x + h
         y, aux = moe_mod.apply_moe(p["moe"],
-                                   rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
+                                   rmsnorm(x, p["ln2"], cfg.norm_eps), cfg,
+                                   mesh=mesh)
         return x + y, aux
     if btype == "rglru":
         h, _ = rglru_mod.apply_rglru(p["rnn"],
@@ -331,10 +338,10 @@ def apply_block(btype: str, p: dict, x, cfg: ArchConfig, tp: int, *,
         k, v = cross_kv(p["xattn"], enc_out)
         x = x + cross_attn(p["xattn"], rmsnorm(x, p["lnx"], cfg.norm_eps),
                            k, v, cfg, tp, positions=positions,
-                           k_positions=enc_positions)
+                           k_positions=enc_positions, mesh=mesh)
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if btype == "attn_moe":
-        y, aux = moe_mod.apply_moe(p["moe"], h2, cfg)
+        y, aux = moe_mod.apply_moe(p["moe"], h2, cfg, mesh=mesh)
     else:
         y = apply_mlp(p["mlp"], h2, mesh)
     return x + y, aux

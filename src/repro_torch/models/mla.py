@@ -14,8 +14,13 @@ Decode caches only the latent c_kv and the rotary key per position
 (`init_mla_cache`) and absorbs `w_uk` into the query and `w_uv` into
 the output (`decode_mla`), in f32 as in the reference.
 
-`mla_axes` names its weights' logical axes; the block does not run
-split under a mesh yet (ROADMAP Queue 1 item 11).
+`mla_axes` names its weights' logical axes. Under a mesh each `model`
+rank holds its heads of `w_q` (or `w_uq`), `w_uk`, `w_uv` and `w_o`;
+`w_dkv`, `kv_ln` (and `w_dq`, `q_ln`) are whole on every rank. The
+tensors that the rank's products share (the query input, the normalised
+latent c_kv and the rotary key) enter the tensor-parallel region there,
+so the replicated leaves' gradients are whole on every rank, and the
+output projection's partial sums are added over `model`.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as att
 from repro_torch.models import blocks
+from repro_torch.models.shardings import from_model, to_model
 
 
 def init_mla(gen, cfg: ArchConfig, dtype=torch.bfloat16,
@@ -75,39 +81,41 @@ def _rmsnorm(x, g, eps=1e-6):
             ).to(x.dtype) * g
 
 
-def _queries(p, x, positions, m, theta):
-    """(q_nope, q_rope) (B, S, H, .), q_rope rotated."""
+def _queries(p, x, positions, m, theta, mesh=None):
+    """(q_nope, q_rope) (B, S, H, .), q_rope rotated; under `mesh` the
+    rank's heads."""
     if "w_dq" in p:
-        q = _rmsnorm(blocks.matmul(x, p["w_dq"]), p["q_ln"])
+        q = to_model(_rmsnorm(blocks.matmul(x, p["w_dq"]), p["q_ln"]), mesh)
         q = blocks.einsum("bsr,rhk->bshk", q, p["w_uq"])
     else:
-        q = blocks.einsum("bsd,dhk->bshk", x, p["w_q"])
+        q = blocks.einsum("bsd,dhk->bshk", to_model(x, mesh), p["w_q"])
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     return q_nope, att.rope(q_rope, positions, theta)
 
 
 def apply_mla(p: dict, x, positions, cfg: ArchConfig,
-              impl="chunked"):
-    """Train/prefill path. x: (B, S, D); positions: (B, S)."""
+              impl="chunked", mesh=None):
+    """Train/prefill path. x: (B, S, D); positions: (B, S). Under
+    `mesh`, p holds the rank's heads (see the module's docstring)."""
     m = cfg.mla
     B, S, _ = x.shape
-    q_nope, q_rope = _queries(p, x, positions, m, cfg.rope_theta)
+    q_nope, q_rope = _queries(p, x, positions, m, cfg.rope_theta, mesh)
     ckv = blocks.matmul(x, p["w_dkv"])
-    c_kv = _rmsnorm(ckv[..., :m.kv_lora_rank], p["kv_ln"])
-    k_rope = att.rope(ckv[..., None, m.kv_lora_rank:], positions,
-                      cfg.rope_theta)                      # (B,S,1,rope)
+    c_kv = to_model(_rmsnorm(ckv[..., :m.kv_lora_rank], p["kv_ln"]), mesh)
+    k_rope = to_model(att.rope(ckv[..., None, m.kv_lora_rank:], positions,
+                               cfg.rope_theta), mesh)      # (B,S,1,rope)
     k_nope = blocks.einsum("bsr,rhk->bshk", c_kv, p["w_uk"])
     v = blocks.einsum("bsr,rhk->bshk", c_kv, p["w_uv"])
-    # one rotary key for every head: expanded, so its gradient sums over
-    # the heads
-    k_rope_b = k_rope.expand(B, S, cfg.num_heads, m.qk_rope_dim)
+    # one rotary key for every head of the rank: expanded, so its
+    # gradient sums over the heads
+    k_rope_b = k_rope.expand(B, S, k_nope.shape[2], m.qk_rope_dim)
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope_b], -1)
     # MLA is MHA (one kv per q head): N = h, G = 1
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
     out = att.attend(q[:, :, :, None, :], k, v, positions, positions,
                      causal=True, impl=impl, scale=scale)[:, :, :, 0, :]
-    return blocks.einsum("bshk,hkd->bsd", out, p["w_o"])
+    return from_model(blocks.einsum("bshk,hkd->bsd", out, p["w_o"]), mesh)
 
 
 def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int,

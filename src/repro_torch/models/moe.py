@@ -7,9 +7,19 @@ code, as the reference computes them outside any kernel; the three
 expert products (gate, up, down) run in the grouped-matmul kernels
 (kernels/moe_gmm.py), folded from (E, B, C, .) to (E, B*C, .). The
 shared (always-on) experts are one dense SwiGLU MLP of width
-num_shared * d_expert. `moe_axes` names the weights' logical axes; the
-block does not run split under a mesh yet (expert parallelism with
-global routing, ROADMAP Queue 1 item 11).
+num_shared * d_expert. `moe_axes` names the weights' logical axes.
+
+Under a mesh each `model` rank holds E / tp experts (the padded count,
+`phys_experts`), its columns of the router and its `d_ff` block of the
+shared experts. Every rank gathers the whole (B, S, E) logits and
+routes its rows as one device does: capacity is per batch row, so a
+data rank that routes its own rows drops exactly the tokens the
+reference drops. It then runs the grouped matmul on its experts' slice
+of the dispatch, and its experts' and shared block's partial outputs are
+added over `model`. The load-balance loss is each rank's exact share of
+the global batch's: its experts' terms, its rows' mean router
+probability over the data extent, and the expert counts summed over the
+data ranks.
 """
 from __future__ import annotations
 
@@ -22,6 +32,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, MoECfg
 from repro_torch.kernels import ops
 from repro_torch.models import blocks
+from repro_torch.models.shardings import (axis_index, axis_size,
+                                          from_model, gather_model,
+                                          sum_over_batch, to_model)
 
 
 def phys_experts(moe: MoECfg, ep: int) -> int:
@@ -76,15 +89,16 @@ def _expert_matmul(x, w):
     return y.reshape(E, B, C, w.shape[-1])
 
 
-def route(p: dict, x, cfg: ArchConfig, capacity: int):
-    """Router and capacity-based top-k dispatch.
+def route(p: dict, x, cfg: ArchConfig, capacity: int, mesh=None):
+    """Router and capacity-based top-k dispatch over every expert (under
+    a mesh the rank's router columns' logits gathered over `model`).
     Returns (probs, onehot, dispatch, combine): probs (B,S,E) f32,
     onehot (B,S,k,E), dispatch and combine (B,S,E,C) f32."""
     moe = cfg.moe
-    E = p["router"].shape[1]
     k = moe.top_k
     B, S, _ = x.shape
-    logits = blocks.matmul(x.float(), p["router"])              # (B,S,E)
+    logits = gather_model(blocks.matmul(x.float(), p["router"]), mesh)
+    E = logits.shape[-1]                                    # (B,S,E)
     if E > moe.num_experts:                                 # mask padding
         pad = torch.arange(E, device=x.device) >= moe.num_experts
         logits = torch.where(pad, torch.full_like(logits, -1e30), logits)
@@ -114,21 +128,31 @@ def route(p: dict, x, cfg: ArchConfig, capacity: int):
     return probs, onehot, dispatch, combine
 
 
-def apply_moe(p: dict, x, cfg: ArchConfig,
-              capacity: Optional[int] = None) -> Tuple[torch.Tensor,
-                                                       torch.Tensor]:
+def apply_moe(p: dict, x, cfg: ArchConfig, capacity: Optional[int] = None,
+              mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y, aux_loss).
 
     Capacity-based top-k dispatch (Switch/Mixtral style): the dispatch
     one-hot (B,S,E,C) routes tokens into per-expert buffers of C slots
     per batch row; overflow tokens are dropped (their residual path
-    carries them)."""
+    carries them). Under `mesh`, p holds the rank's experts and x its
+    rows; y is whole over `model` and aux the rank's share of the
+    global batch's (see the module's docstring)."""
     moe = cfg.moe
     B, S, D = x.shape
     if capacity is None:
         capacity = max(4, int(math.ceil(S * moe.top_k / moe.num_experts
                                         * moe.capacity_factor)))
-    probs, onehot, dispatch, combine = route(p, x, cfg, capacity)
+    # the router, the routed and the shared experts all read x: its
+    # gradient is summed over `model` here, once
+    x = to_model(x, mesh)
+    probs, onehot, dispatch, combine = route(p, x, cfg, capacity, mesh)
+    # the rank's experts [lo, lo + n) of the E routed over
+    n = p["w_gate"].shape[0]
+    lo = axis_index(mesh, "experts") * n
+    if n < dispatch.shape[2]:
+        dispatch = dispatch.narrow(2, lo, n)
+        combine = combine.narrow(2, lo, n)
 
     xin = torch.einsum("bsec,bsd->ebcd", dispatch.to(x.dtype), x)
     h = F.silu(_expert_matmul(xin, p["w_gate"]))
@@ -140,12 +164,17 @@ def apply_moe(p: dict, x, cfg: ArchConfig,
         hs = F.silu(blocks.matmul(x, p["ws_gate"])) * \
             blocks.matmul(x, p["ws_up"])
         y = y + blocks.matmul(hs, p["ws_down"])
+    y = from_model(y, mesh)
 
-    # Switch-style load-balance auxiliary loss over live experts.
-    me = probs[..., :moe.num_experts].mean((0, 1))
-    ce = onehot[..., :moe.num_experts].sum(2).mean((0, 1))
+    # Switch-style load-balance auxiliary loss over live experts: the
+    # rank's experts' terms, added over `model`; means over the global
+    # batch, the rank's share of me and the data ranks' sum of ce
+    live = slice(lo, min(lo + n, moe.num_experts))
+    dp = axis_size(mesh, "batch")
+    me = probs[..., live].mean((0, 1)) / dp
+    ce = sum_over_batch(onehot[..., live].sum(2).mean((0, 1)), mesh) / dp
     aux = moe.num_experts * torch.sum(me * ce) * moe.router_aux_weight
-    return y.to(x.dtype), aux
+    return y.to(x.dtype), from_model(aux, mesh)
 
 
 def decode_moe(p: dict, x, cfg: ArchConfig):

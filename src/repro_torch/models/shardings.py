@@ -287,6 +287,21 @@ class _GatherModel(torch.autograd.Function):
         return reduce_scatter_dim(g, ctx.dim, ctx.grp), None, None
 
 
+class _SplitModel(torch.autograd.Function):
+    """This rank's block along `dim` of a tensor every `model` rank holds
+    whole forward; the blocks of the gradient all-gathered backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, grp):
+        ctx.dim, ctx.grp = dim, grp
+        n = x.shape[dim] // dist.get_world_size(grp)
+        return x.narrow(dim, dist.get_rank(grp) * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_dim(g, ctx.dim, ctx.grp), None, None
+
+
 def to_model(x, mesh):
     """Enter a tensor-parallel region: x as it is, its gradient summed
     over the mesh's `model` axis (no-op without one)."""
@@ -306,6 +321,21 @@ def gather_model(x, mesh, dim: int = -1):
     a `model` axis)."""
     grp = _model_group(mesh)
     return x if grp is None else _GatherModel.apply(x, dim % x.dim(), grp)
+
+
+def split_model(x, mesh, dim: int = -1):
+    """This `model` rank's block along `dim` of x, which every rank holds
+    whole (after `from_model`): the inverse of `gather_model`, its
+    gradient gathered from every rank's block (no-op without a `model`
+    axis; raises where the extent does not divide the dimension)."""
+    grp = _model_group(mesh)
+    if grp is None:
+        return x
+    if x.shape[dim] % dist.get_world_size(grp):
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                         f"split over {dist.get_world_size(grp)} model "
+                         f"ranks")
+    return _SplitModel.apply(x, dim % x.dim(), grp)
 
 
 def max_over_model(x, mesh):

@@ -10,6 +10,18 @@ plain (`mlstm_chunkwise`), from that state. The sLSTM has no kernel:
 its recurrence is a Python loop over time, as the reference's
 `lax.scan`, with the input projection x_t W for every step taken in one
 product before the loop, from the zero state or a carried one.
+
+Under a mesh the weights keep the reference's layout (`mlstm_axes`,
+`slstm_axes`): a `model` rank holds a block of the mLSTM's `inner`
+lanes of every weight, and for the sLSTM its `d_ff` block of the GeGLU
+feed-forward. `w_up`'s columns are the concatenation [x_m | z], so a
+rank's block of them is not its lanes of both branches: the up
+projection is gathered over `model` and each rank takes its lanes of
+each half. The q, k, v and gate products contract over the lanes, so
+their partial sums are added over `model` (the gate biases after the
+sum) and each rank keeps its heads: a rank runs the cell on its heads,
+whose lanes are its block, which needs the head count to split over
+`model`. The sLSTM's recurrence runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -21,6 +33,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG, mlstm_chunks
+from repro_torch.models.shardings import (axis_index, axis_size,
+                                          from_model, gather_model,
+                                          split_model, to_model)
 
 
 def _silu(x):
@@ -150,25 +165,38 @@ def init_mlstm_state(cfg: ArchConfig, batch: int, device="cpu") -> dict:
 
 
 def apply_mlstm(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None,
-                chunk: int = 64) -> Tuple[torch.Tensor, Optional[dict]]:
+                chunk: int = 64, mesh=None
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: (B, S, D) -> (y (B, S, D), new state). With state None
     (training, prefill) the cell runs the kernels from the zero state
     and the new state is None; with a decode state {"C", "n", "m",
-    "conv"} it runs `mlstm_chunkwise` from it and returns the next."""
+    "conv"} it runs `mlstm_chunkwise` from it and returns the next.
+    Under `mesh` (training), p holds the rank's lanes and the cell runs
+    the rank's heads (see the module's docstring)."""
     B, S, D = x.shape
-    H = cfg.num_heads
-    up = x @ p["w_up"]
+    tp = axis_size(mesh, "d_ff")
+    H = cfg.num_heads // tp
+    # the whole [x_m | z] on every rank, the rank's lanes of each half
+    up = gather_model(to_model(x, mesh) @ p["w_up"], mesh)
     inner = up.shape[-1] // 2
-    xm, z = up[..., :inner], up[..., inner:]
+    width = inner // tp
+    lo = axis_index(mesh, "d_ff") * width
+    xm, z = up[..., lo:lo + width], up[..., inner + lo:inner + lo + width]
     xc, new_conv = _conv_silu(xm, p["conv_w"], p["conv_b"],
                               None if state is None else state["conv"])
     xcf = xc.float()
-    to_heads = lambda w: torch.einsum("bsi,ihk->bhsk", xcf, w.float())
+    # each product is over the rank's lanes: summed over `model`, then
+    # the rank's heads kept
+    to_heads = lambda w: split_model(from_model(torch.einsum(
+        "bsi,ihk->bhsk", xcf, w.float()), mesh), mesh, 1)
     q, k, v = to_heads(p["w_q"]), to_heads(p["w_k"]), to_heads(p["w_v"])
     # the gate leaves are f32 at init and in the parameters' dtype after
-    # an update; against f32 activations jnp promotes them to f32
-    log_i = (xcf @ p["w_i"].float() + p["b_i"]).transpose(1, 2)   # (B,H,S)
-    log_f = F.logsigmoid(xcf @ p["w_f"].float() + p["b_f"]).transpose(1, 2)
+    # an update; against f32 activations jnp promotes them to f32. The
+    # bias is added once, after the sum
+    gate = lambda w, b: split_model(from_model(xcf @ w.float(), mesh) + b,
+                                    mesh, -1).transpose(1, 2)   # (B,H,S)
+    log_i = gate(p["w_i"], p["b_i"])
+    log_f = F.logsigmoid(gate(p["w_f"], p["b_f"]))
     new_state = None
     if state is None:
         h = _mlstm_cell(q, k, v, log_i, log_f, min(chunk, S))
@@ -177,10 +205,10 @@ def apply_mlstm(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None,
             q, k, v, log_i, log_f, (state["C"], state["n"], state["m"]),
             chunk=min(chunk, S))
         new_state = {"C": C, "n": n, "m": m, "conv": new_conv}
-    h = h.transpose(1, 2).reshape(B, S, inner).to(x.dtype)
+    h = h.transpose(1, 2).reshape(B, S, width).to(x.dtype)
     h = _groupnorm(h, H) * p["ogate_ln"] + xc * p["skip"]
     y = h * _silu(z.float()).to(x.dtype)
-    return y @ p["w_down"], new_state
+    return from_model(y @ p["w_down"], mesh), new_state
 
 
 # =============================================================== sLSTM
@@ -240,12 +268,14 @@ def _slstm_step(zin, carry):
     return h_new, c_new, n_new, m_new
 
 
-def apply_slstm(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None
-                ) -> Tuple[torch.Tensor, Optional[dict]]:
+def apply_slstm(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None,
+                mesh=None) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: (B, S, D) -> (y (B, S, D), new state): from the zero state
     with state None (training, prefill; the new state is None), else
     from the decode state {"h", "c", "n", "m"}, each (B, H, Dh) f32,
-    returning the state after step S.
+    returning the state after step S. Under `mesh` (training) the
+    recurrence runs whole and the feed-forward on the rank's `d_ff`
+    block.
 
     The carry is kept head-major, (H, B, Dh), so that each step's
     recurrent product is one batched matmul over heads fused with the
@@ -273,7 +303,7 @@ def apply_slstm(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None
         carry = _slstm_step(zin, carry)
         hs.append(carry[0])
     h = torch.stack(hs, 0).permute(2, 0, 1, 3).reshape(B, S, D).to(x.dtype)
-    h = _groupnorm(h, H) * p["gn"]
+    h = to_model(_groupnorm(h, H) * p["gn"], mesh)
     # GeGLU feed-forward; jax.nn.gelu's default is the tanh approximation
     y = (F.gelu((h @ p["w_ff1"]).float(), approximate="tanh").to(x.dtype)
          * (h @ p["w_ff2"]))
@@ -281,7 +311,7 @@ def apply_slstm(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None
     if state is not None:
         new_state = {k: t.transpose(0, 1) for k, t in zip(SLSTM_STATE,
                                                           carry)}
-    return y @ p["w_ff3"], new_state
+    return from_model(y @ p["w_ff3"], mesh), new_state
 
 
 def init_slstm_state(cfg: ArchConfig, batch: int, device="cpu") -> dict:

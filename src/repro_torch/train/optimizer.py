@@ -29,8 +29,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models.shardings import (DP_AXES, NamedSharding,
-                                          entry_axes, gather_dim, group,
-                                          local_block, mesh_axes,
+                                          axis_size, entry_axes, gather_dim,
+                                          group, local_block, mesh_axes,
                                           reduce_scatter_dim)
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
@@ -224,9 +224,14 @@ def dp_split(sh: NamedSharding):
 
 def reduce_grad(g, sh: NamedSharding):
     """The gradient of one rank's rows summed over the data axes, in
-    f32, kept as this rank's block of `sh`'s data split."""
-    g = g.float()
+    f32, kept as this rank's block of `sh`'s data split. With one data
+    rank there is nothing to sum, and g is returned as it is: the update
+    widens it a slice at a time, so the f32 copies of every gradient are
+    never held at once."""
     mesh = sh.mesh
+    if axis_size(mesh, "batch") == 1:
+        return g
+    g = g.float()
     dim, used = dp_split(sh)
     rest = group(mesh, [a for a in DP_AXES if a not in used])
     if rest is not None:
@@ -255,6 +260,14 @@ def gather_over_data(x, sh: NamedSharding):
     return gather_dim(x, dim, group(sh.mesh, used)) if used else x
 
 
+def _square_sum(g):
+    """sum(g²) in f32, the bits of global_norm's term: the f32 copy of a
+    gradient in another dtype is squared in place, so a leaf costs one
+    f32 temporary, not two."""
+    x = g.float()
+    return torch.sum(torch.square(x) if x is g else x.square_())
+
+
 @torch.no_grad()
 def adam_update_sharded_(params, grads, opt_state: dict, cfg: AdamCfg,
                          param_shardings: list, opt_shardings_: list,
@@ -277,7 +290,7 @@ def adam_update_sharded_(params, grads, opt_state: dict, cfg: AdamCfg,
     for i, sh in enumerate(opt_shardings_):
         g = reduce_grad(grads[i], sh)
         grads[i] = None
-        part = torch.sum(torch.square(g))
+        part = _square_sum(g)
         shards.append(g)
         partials.append(part / sh.copies() if sh.copies() > 1 else part)
     total = sum(partials)

@@ -5,12 +5,16 @@ starts with torch alone).
 `parity` runs the (case, mesh) runs that a test lists in
 `<tmp>/inputs.pkl` beside the cases' weights and batches (written while
 the ranks start), one gloo world over a FileStore per mesh size. The
-`launcher` ranks (f32 parameters) check what a mesh refuses, the launcher's resume
+`launcher` ranks (f32 parameters) check what a mesh refuses (prefill,
+serving and decoding; MLA at a tp that does not divide its heads) and
+that every architecture's train step builds under one, the launcher's resume
 from a (2, 1) checkpoint onto (1, 2), FSDP (REPRO_FSDP=1) at (2, 1),
-and the loss over split rows and a split vocabulary. Each rank pickles what it found
+the loss over split rows and a split vocabulary, and that a mesh of one
+shape is made once per process group. Each rank pickles what it found
 into `<tmp>/rank<world>_<rank>.pkl`; `start` and `finish` are the
 test's side.
 """
+import dataclasses
 import math
 import os
 import pickle
@@ -32,24 +36,34 @@ from repro_torch.tree import tree_leaves
 ADAM = dict(lr=1e-3, warmup_steps=2)
 
 
+def config(cfg, cuts=None):
+    """`cfg` (the JAX package's or the port's) with the fields of its
+    sub-configs that `cuts` names replaced, e.g. {"moe": {"num_experts":
+    7}}."""
+    return cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
+                          for k, v in (cuts or {}).items()})
+
+
 def _case(inputs: dict, name: str, mesh) -> dict:
     """One model on one mesh, from the reference's weights: the forward's
-    whole logits, one train step's stats and whole parameters, and the
-    local blocks' shapes against state_shardings'."""
+    whole logits, one train step's stats (the loss with the aux loss)
+    and whole parameters, and the local blocks' shapes against
+    state_shardings'."""
     case = inputs[name]
-    cfg = registry.reduced_config(case["arch"])
+    cfg = config(registry.reduced_config(case["arch"]), case["cuts"])
     tp = mesh.shape[-1]
     params = params_from_numpy(case["params"], "cpu")
     run = step.RunCfg(adam=step.AdamCfg(**ADAM), param_dtype=torch.float32)
     whole_state = {"params": params, "opt": opt_mod.init_opt_state(params)}
     state = step.shard_state(whole_state, cfg, mesh, "cpu")
-    tokens = torch.from_numpy(case["tokens"]).long()
-    logits, _ = backbone.forward(state["params"],
-                                 shard(tokens, ("batch", None), mesh), cfg,
-                                 tp, mesh)
+    batch = {k: case[k] for k in ("tokens", "frames") if k in case}
+    rows = {k: shard(torch.from_numpy(v), ("batch",) + (None,) *
+                     (v.ndim - 1), mesh) for k, v in batch.items()}
+    logits, _ = backbone.forward(state["params"], rows.pop("tokens").long(),
+                                 cfg, tp, mesh, **rows)
     logits = whole(logits, resolve(("batch", None, "vocab"), mesh), mesh)
     state, stats = step.make_train_step(cfg, run, mesh, device="cpu")(
-        state, {"tokens": case["tokens"]})
+        state, batch)
     sh = step.state_shardings(cfg, mesh)
     specs = step.state_specs(cfg, run, mesh)
     blocks = {}
@@ -65,15 +79,18 @@ def _case(inputs: dict, name: str, mesh) -> dict:
                         sum(math.prod(p.shape) for p in tree_leaves(p_tree)))
     new = [s.whole(t).numpy() for t, s in
            zip(tree_leaves(state["params"]), tree_leaves(sh["params"]))]
-    return {"logits": logits.numpy(), "loss": float(stats["loss"]),
+    return {"logits": logits.detach().numpy(),
+            "loss": float(stats["total_loss"]),
             "grad_norm": float(stats["grad_norm"]), "blocks": blocks,
             "params": new}
 
 
 def _refusals(world: int) -> dict:
-    """What a mesh refuses: a size other than the world's, block types
-    that do not run split, and a batch that the data ranks do not
-    divide."""
+    """What a mesh refuses: a size other than the world's, prefill,
+    serving and decoding (NotImplementedError), MLA at a tp that does
+    not divide its heads and a batch that the data ranks do not divide
+    (ValueError); and under "trains" the architectures whose train step
+    builds under a mesh."""
     out = {}
     try:
         launch.main(LAUNCHER + ["--mesh", f"{world}x1", "--steps", "1",
@@ -87,14 +104,38 @@ def _refusals(world: int) -> dict:
     except ValueError as e:
         out["size"] = str(e)
     mesh = make_production_mesh(f"1x{world}", "cpu")
-    for arch in ("qwen2-moe-a2.7b", "xlstm-350m", "whisper-medium"):
-        cfg = registry.reduced_config(arch)
+    run = step.RunCfg()
+    cfg = registry.reduced_config("whisper-medium")
+    calls = {
+        "make_prefill_step": lambda: step.make_prefill_step(
+            cfg, run, mesh, device="cpu"),
+        "make_serve_step": lambda: step.make_serve_step(cfg, mesh,
+                                                        device="cpu"),
+        "decode_step": lambda: backbone.decode_step(None, None, None, cfg,
+                                                    mesh=mesh),
+        "setup_cross_cache": lambda: backbone.setup_cross_cache(
+            None, None, None, cfg, mesh=mesh)}
+    for name, call in calls.items():
         try:
-            step.make_train_step(cfg, step.RunCfg(), mesh, device="cpu")
-            out[arch] = None
+            call()
+            out[name] = None
         except NotImplementedError as e:
-            out[arch] = str(e)
+            out[name] = str(e)
+    mla = registry.reduced_config("deepseek-v2-lite-16b").replace(
+        num_heads=world + 1)
+    try:
+        step.make_train_step(mla, run, mesh, device="cpu")
+        out["mla"] = None
+    except ValueError as e:
+        out["mla"] = str(e)
+    out["trains"] = [arch for arch in TRAINS if step.make_train_step(
+        registry.reduced_config(arch), run, mesh, device="cpu")]
     return out
+
+
+# an architecture of each block type
+TRAINS = ("qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "xlstm-350m",
+          "whisper-medium", "recurrentgemma-2b", "stablelm-1.6b")
 
 
 LAUNCHER = ["--arch", "stablelm-1.6b", "--reduced", "--device", "cpu",
@@ -212,6 +253,15 @@ def parity(rank: int, tmp: str) -> None:
                 for name, mesh in worlds[w]})
 
 
+def _meshes() -> dict:
+    """Whether a second mesh of one shape in the process group is the
+    first (its process groups made once), and one of another shape is
+    not."""
+    one = make_production_mesh("1x2", "cpu")
+    return {"same": make_production_mesh("1x2", "cpu") is one,
+            "other": make_production_mesh("2x1", "cpu") is not one}
+
+
 def launcher(rank: int, tmp: str) -> None:
     """One rank of tests/test_torch_mesh_launcher.py."""
     torch.set_num_threads(1)
@@ -219,7 +269,8 @@ def launcher(rank: int, tmp: str) -> None:
     _world(tmp, rank, 2, lambda world: {"refusals": _refusals(world),
                                         "launcher": _launcher(tmp),
                                         "fsdp": _fsdp(),
-                                        "loss": _masked_loss()})
+                                        "loss": _masked_loss(),
+                                        "meshes": _meshes()})
 
 
 # ------------------------------------------------------ the test's side

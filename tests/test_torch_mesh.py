@@ -1,13 +1,14 @@
 """The port's meshes on real gloo process groups on the CPU, held against
 the JAX package at the same tp with no mesh: reduced Yi (7 q heads on
 one kv head, padded to 8 on 2 slots at tp 2) on (2, 2) and (1, 2)
-(tests/test_torch_mesh_rg.py does reduced RecurrentGemma), from the
-reference's weights at tp 2 carried over with `convert`: the forward's
-logits, one train step (loss, grad norm, parameters: the reference's
-forward and lm_loss under jax.value_and_grad, then adam_update), and
-each rank's blocks of every parameter and Adam leaf against the shapes
-`state_shardings` gives them. The ranks run `mesh_workers.parity`,
-spawned once for the module.
+(tests/test_torch_mesh_{rg,moe,mla,xlstm,whisper}.py do the other block
+types), from the reference's weights at tp 2 carried over with
+`convert`: the forward's logits, one train step (the loss with the
+forward's aux loss, grad norm, parameters: the reference's forward and
+lm_loss plus aux under jax.value_and_grad, then adam_update, as its
+train step), and each rank's blocks of every parameter and Adam leaf
+against the shapes `state_shardings` gives them. The ranks run
+`mesh_workers.parity`, spawned once for the module.
 """
 import pickle
 
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 
 import mesh_workers
-from decode_helpers import close, jit, one_torch_thread, tokens
+from decode_helpers import close, jit, one_torch_thread, tokens, x
 from repro.models import backbone as jbackbone
 from repro.models import registry as jregistry
 from repro.train import optimizer as jopt
@@ -31,26 +32,35 @@ RUNS = [("yi", "2x2", 4), ("yi", "1x2", 2)]
 TP, B = 2, 4
 
 
-def _weights(arch: str, seq: int, seed: int):
-    """The reference's f32 weights at tp 2 (key `seed`) and a batch."""
-    jcfg = jregistry.reduced_config(arch)
+def _weights(arch: str, seq: int, seed: int, cuts=None):
+    """The reference's f32 weights at tp 2 (key `seed`) of the reduced
+    config with `cuts` (`mesh_workers.config`), and a batch (with
+    frames for an encoder)."""
+    jcfg = mesh_workers.config(jregistry.reduced_config(arch), cuts)
     params = jit(lambda k: jbackbone.init_params(jcfg, k, tp=TP,
                                                  dtype=jnp.float32))(
         jax.random.PRNGKey(seed))
-    return {"arch": arch, "params": jax.tree.map(np.asarray, params),
+    case = {"arch": arch, "cuts": cuts,
+            "params": jax.tree.map(np.asarray, params),
             "tokens": tokens(seed + 1, B, seq, jcfg.vocab_size)}
+    if jcfg.encoder_layers:
+        case["frames"] = x(seed + 2, B, jcfg.encoder_seq, jcfg.d_model)
+    return case
 
 
 def _reference(case: dict) -> dict:
     """What the reference's train step gives from `case`'s weights and
-    batch: logits, loss, grad norm and the new parameters."""
-    jcfg = jregistry.reduced_config(case["arch"])
+    batch: logits, loss (with the aux loss), grad norm and the new
+    parameters."""
+    jcfg = mesh_workers.config(jregistry.reduced_config(case["arch"]),
+                               case["cuts"])
 
-    def step(params, toks):
+    def step(params, toks, frames):
         def loss_fn(p):
-            logits, _ = jbackbone.forward(p, toks, jcfg, TP, None,
-                                          impl="dense", remat=False)
-            return jbackbone.lm_loss(logits, toks), logits
+            logits, aux = jbackbone.forward(p, toks, jcfg, TP, None,
+                                            impl="dense", remat=False,
+                                            frames=frames)
+            return jbackbone.lm_loss(logits, toks) + aux, logits
         (loss, logits), grads = jax.value_and_grad(
             loss_fn, has_aux=True)(params)
         new, _, stats = jopt.adam_update(
@@ -60,8 +70,10 @@ def _reference(case: dict) -> dict:
                 "grad_norm": stats["grad_norm"],
                 "params": jax.tree.leaves(new)}
 
+    frames = case.get("frames")
     return jit(step)(jax.tree.map(jnp.asarray, case["params"]),
-                     jnp.asarray(case["tokens"]))
+                     jnp.asarray(case["tokens"]),
+                     None if frames is None else jnp.asarray(frames))
 
 
 def spawn_parity(tmp, cases: dict, runs: list):
@@ -71,8 +83,8 @@ def spawn_parity(tmp, cases: dict, runs: list):
     worlds = sorted({w for _, _, w in runs}, reverse=True)
     ctx = mesh_workers.start(mesh_workers.parity, tmp, worlds[0])
     try:
-        inputs = {name: _weights(arch, seq, 3 + i)
-                  for i, (name, (arch, seq)) in enumerate(cases.items())}
+        inputs = {name: _weights(*spec[:2], 3 + i, *spec[2:])
+                  for i, (name, spec) in enumerate(cases.items())}
         part = tmp / "inputs.part"
         with open(part, "wb") as f:
             pickle.dump(dict(inputs, runs=[r[:2] for r in runs]), f)
@@ -104,13 +116,18 @@ def check_parity(ranks, name, mesh, world):
 
 def check_blocks(ranks, name, mesh, world):
     """Every parameter and Adam leaf of every rank has the block shape
-    its sharding gives on that mesh: nothing was replicated whole."""
+    its sharding gives on that mesh: nothing was replicated whole (but
+    the parameters where the mesh has one `model` rank)."""
     got, _ = ranks
+    whole_params = mesh.endswith("x1")
     for r in range(world):
         for part, (same, local, whole) in \
                 got[world, r][f"{name} {mesh}"]["blocks"].items():
             assert same, (r, part)
-            assert local < whole, (r, part, local, whole)
+            if part == "params" and whole_params:
+                assert local == whole, (r, part, local, whole)
+            else:
+                assert local < whole, (r, part, local, whole)
 
 
 @pytest.mark.parametrize("name,mesh,world", RUNS,

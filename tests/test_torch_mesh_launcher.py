@@ -3,8 +3,11 @@ run at --mesh 2x1 checkpointed and resumed at --mesh 1x2 (another
 shape, the same tp-1 layout: reduced StableLM's heads and vocab divide)
 against an unbroken run with no mesh; FSDP at 2x1 against ZeRO-1;
 the loss over split rows (masks of unequal counts) and a split
-vocabulary; what a mesh refuses (a batch the data ranks do not divide
-among it); and --mesh on the card without CUDA. The two ranks run
+vocabulary; what a mesh refuses (prefill, serving and decoding, MLA at
+a tp that does not divide its heads, a batch the data ranks do not
+divide among it) and that every block type's train step builds under
+one; that a mesh of one shape is made once per process group; and
+--mesh on the card without CUDA. The two ranks run
 `mesh_workers.launcher` with f32 parameters, spawned once for the
 module.
 """
@@ -65,17 +68,21 @@ def test_loss_is_the_global_mean_over_split_rows_and_vocab(ranks):
 
 
 def test_mesh_refusals(ranks):
-    """A mesh of another size than the world's raises, and so does every
-    block type that does not run split."""
+    """A mesh of another size than the world's raises; so do prefill,
+    serving and decoding under a mesh, naming the roadmap's item, and
+    MLA at a tp that does not divide its heads. Every block type's
+    train step builds under a mesh."""
     for rank in range(2):
         out = dict(ranks[2, rank]["refusals"])
         out.pop("batch")
         assert "devices, the world" in out.pop("size")
-        assert set(out) == {"qwen2-moe-a2.7b", "xlstm-350m",
-                            "whisper-medium"}
-        for arch, msg in out.items():
-            assert "under a mesh is not ported" in msg, arch
-            assert "ROADMAP Queue 1 item 11" in msg, arch
+        assert out.pop("trains") == list(mesh_workers.TRAINS)
+        assert "3 heads do not split over tp 2" in out.pop("mla")
+        assert set(out) == {"make_prefill_step", "make_serve_step",
+                            "decode_step", "setup_cross_cache"}
+        for call, msg in out.items():
+            assert "under a mesh" in msg and "not ported" in msg, call
+            assert "ROADMAP Queue 1 item 11" in msg, call
 
 
 def test_mesh_refuses_a_batch_the_data_ranks_do_not_divide(ranks):
@@ -85,6 +92,15 @@ def test_mesh_refuses_a_batch_the_data_ranks_do_not_divide(ranks):
         msg = ranks[2, rank]["refusals"]["batch"]
         assert msg is not None
         assert "does not split over 2 data rank" in msg
+
+
+def test_one_mesh_per_shape_in_a_process_group(ranks):
+    """make_production_mesh hands every later caller in the process group
+    the mesh it made first for that shape, so runs on one mesh share its
+    process groups (NCCL communicators on the card); another shape gets
+    its own."""
+    for rank in range(2):
+        assert ranks[2, rank]["meshes"] == {"same": True, "other": True}
 
 
 def test_launcher_mesh_needs_cuda_on_the_card(monkeypatch):
