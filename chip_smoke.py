@@ -167,7 +167,32 @@ Phases (each failure exits non-zero):
      grad norms within MESH_LOSS_TOL and MESH_GNORM_TOL of the
      one-process run's. Per rank it prints the peak memory and the step
      times. `python3 chip_smoke.py --only mesh` builds the kernels and
-     runs this phase alone.
+     runs this phase alone;
+ 14. serving under meshes (run after phase 13, before phase 11), one
+     rank per card the script finds, f32 weights from seed 0. On one
+     card: each model of SERVE_MESH at full width (StableLM-2-1.6B 4
+     layers, Qwen1.5-MoE-A2.7B and DeepSeek-V2-Lite 2 layers,
+     RecurrentGemma-2B one period past its window, xLSTM-350M one
+     period, Whisper-medium 2 + 2 layers after setup_cross_cache) is
+     served with no mesh, then with `--mesh 1x1` over one NCCL process
+     group (make_serve_step under sync debug "error", then
+     make_prefill_step; the prefill's kernel launches counted): the
+     decode logits, the prefill logits and the cache after the last
+     token (gathered through cache_shardings) must be bitwise equal,
+     and the launches the config's count. On N > 1 cards: one spawned
+     rank per card serves Yi-34B at full width and depth (60 layers,
+     56 q / 8 kv heads of 128, d_ff 20480; about 140 GB in f32, which
+     no card holds) on 1xN, YI_SERVE tokens: the f32 decode with no
+     host sync, a rerun from NaN-filled slot buffers bitwise equal, the
+     prefill on the same tokens, decode against prefill within
+     SERVE_TOL, then bf16 weights and cache (finite, a same-seed rerun
+     bitwise; against the f32 logits reported); ms per token, tokens/s
+     and peak memory per rank. Then every SERVE_MESH model on 1xN and
+     StableLM also on (N/2)x2, twice each: the ranks' gathered logits
+     equal, the two runs bitwise, the launches the config's count, and
+     the logits within SERVE_MESH_TOL of one process on one card in the
+     same tp layout. `python3 chip_smoke.py --only serve-mesh` builds
+     the kernels and runs this phase alone.
 Each engine slice runs setup, record_iteration and 3 x train_iteration
 twice with the same seed; the launcher slices run the launcher twice.
 Losses must be bitwise equal across the two runs, and the GPT, MoE and
@@ -374,6 +399,33 @@ SERVE_TOL = 1e-3
 # against the CPU: logits, f32 sums in other orders over two layers (the
 # engine's bound in check_reference)
 SERVE_REF_TOL = 1e-4
+# phase 14, serving under meshes: per model (arch, config cuts, batch,
+# decoded tokens, cache slots). Full width; depth cut as phase 13 cuts
+# it, RecurrentGemma-2B to one period (rglru, rglru, local_attn) as
+# phase 11 serves it, decoding 32 tokens past its window of 2048 (the
+# ring wraps). Decode is host-bound (2.5-4.6 ms a layer a token, PERF.md
+# §5), and each model is served twice on one card: the tokens are cut
+# to keep the phase near 60 s, most of it RecurrentGemma's 2080
+SERVE_MESH = (("stablelm-1.6b", {"num_layers": 4}, 8, 16, 64),
+              ("qwen2-moe-a2.7b", {"num_layers": 2}, 8, 16, 64),
+              ("deepseek-v2-lite-16b", {"num_layers": 2}, 8, 16, 64),
+              ("recurrentgemma-2b", {"num_layers": 3}, 2, 2080, 2080),
+              ("xlstm-350m", {"num_layers": 2}, 4, 16, 64),
+              ("whisper-medium", {"num_layers": 2, "encoder_layers": 2},
+               4, 16, 448))
+# the split serve path's gathered logits against one process on one
+# card in the same tp layout, f32 weights and cache: max |mesh - one|
+# over max(1, max |one|) within the vocab. The same products, but every
+# output projection's partial sums (heads, lanes, experts, the vocab's
+# embedding blocks) added over `model` in NCCL's order where one
+# process sums them in one GEMM, compounded over up to 4 layers; a
+# wrong head, slot or row moves the logits by O(0.1) (PERF.md §6)
+SERVE_MESH_TOL = 1e-4
+# Yi-34B (arXiv:2403.04652) on N > 1 cards: batch, decoded tokens,
+# cache slots. At 1x4 a rank holds 8.6 G of its 34.4 G f32 parameters
+# (34 GB) and 2 of its 8 kv heads: 8 x 2048 x 60 x 2 x 2 x 128 x 4 B =
+# 2.0 GB of f32 cache (computed from the config)
+YI_SERVE = (8, 32, 2048)
 # phase 9: the campaign at GPT-medium with phase 4's engine arguments,
 # and the scenarios it drives after the reference run
 CAMPAIGN_CFG = dict(arch="gpt-medium", dp=2, pp=2, global_batch=8,
@@ -2020,12 +2072,9 @@ def mesh_one_card(mods) -> dict:
     return found
 
 
-def mesh_rank(rank: int, world: int, port: int, jobs: list,
-              out_dir: str) -> None:
-    """One rank of phase 13 on several cards (spawned, one per card): the
-    environment torchrun gives a rank, an NCCL process group, and each
-    job's launcher run twice with one seed; what each run gave goes to
-    `out_dir`/rank<rank>.json, written anew after each job."""
+def rank_setup(rank: int, world: int, port: int) -> tuple:
+    """A spawned rank's start: the environment torchrun gives a rank, its
+    card and an NCCL process group; returns the kernel modules."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
                       MASTER_PORT=str(port))
@@ -2035,10 +2084,19 @@ def mesh_rank(rank: int, world: int, port: int, jobs: list,
     from repro_torch.kernels import mlstm as ml
     from repro_torch.kernels import moe_gmm as gm
     from repro_torch.kernels import rglru_scan as rg
-    from repro_torch.launch import train as launch
-    mods = (fa, gm, rg, ml)
     torch.cuda.set_device(rank)
     dist.init_process_group("nccl", device_id=torch.device("cuda", rank))
+    return fa, gm, rg, ml
+
+
+def mesh_rank(rank: int, world: int, port: int, jobs: list,
+              out_dir: str) -> None:
+    """One rank of phase 13 on several cards (spawned, one per card):
+    each job's launcher run twice with one seed; what each run gave goes
+    to `out_dir`/rank<rank>.json, written anew after each job."""
+    mods = rank_setup(rank, world, port)
+    import torch.distributed as dist
+    from repro_torch.launch import train as launch
     out = []
     try:
         for argv in jobs:
@@ -2204,25 +2262,34 @@ def sync_is_error(on: bool):
 
 
 def decode_run(cfg, params, tokens, max_len: int, cache_dtype,
-               nan_fill=False, sync_check=False, frames=None):
+               nan_fill=False, sync_check=False, frames=None, mesh=None,
+               tp=None):
     """`tokens` (B, N) decoded one at a time on the card through
     make_serve_step from an empty cache of `max_len` slots in
     `cache_dtype` (its slot buffers filled with NaN with `nan_fill`), the
     loop under sync debug "error" with `sync_check`; with `frames`,
-    setup_cross_cache fills the cross K/V first. Returns (logits (B, N,
-    V), the loop's wall seconds between synchronizations)."""
+    setup_cross_cache fills the cross K/V first. Under `mesh`, params
+    hold the rank's blocks, the cache is the rank's, tokens and frames
+    are the global batch's and the logits the rank's rows and vocab
+    block; without one, `tp` picks the layout (default 1). Returns
+    (logits (B, N, V), the loop's wall seconds between
+    synchronizations, the cache after the last token)."""
     from repro_torch.models import backbone
+    from repro_torch.models.shardings import axis_size, shard
     from repro_torch.train import step as step_mod
-    serve = step_mod.make_serve_step(cfg)
-    cache = backbone.init_cache(cfg, tokens.shape[0], max_len,
-                                dtype=cache_dtype)
+    tp = axis_size(mesh, "heads") if mesh is not None else (tp or 1)
+    serve = step_mod.make_serve_step(cfg, mesh, tp=tp)
+    cache = backbone.init_cache(cfg, tokens.shape[0], max_len, tp,
+                                dtype=cache_dtype, mesh=mesh)
     if nan_fill:
         for t in kv_buffers(cache):
             t.fill_(float("nan"))
     if frames is not None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        backbone.setup_cross_cache(params, cache, frames, cfg)
+        backbone.setup_cross_cache(params, cache,
+                                   shard(frames, ("batch", None, None), mesh),
+                                   cfg, tp, mesh)
         torch.cuda.synchronize()
         print(f"  setup_cross_cache (the encoder over {frames.shape[1]} "
               f"frames, {cfg.num_layers} layers' cross K/V): "
@@ -2235,7 +2302,7 @@ def decode_run(cfg, params, tokens, max_len: int, cache_dtype,
             logits, cache = serve(params, cache, tokens[:, i:i + 1])
             outs.append(logits)
     torch.cuda.synchronize()
-    return torch.cat(outs, 1), time.perf_counter() - t0
+    return torch.cat(outs, 1), time.perf_counter() - t0, cache
 
 
 def serve_expected_launches(cfg, setups: int):
@@ -2315,15 +2382,15 @@ def drive_serve(mods, cfg, card: str):
               f"per token, {batch * n / wall:.1f} tokens/s [{card}]",
               flush=True)
 
-    dec, wall = decode_run(cfg, params, tokens, max_len, f32,
-                           sync_check=True, frames=frames)
+    dec, wall, _ = decode_run(cfg, params, tokens, max_len, f32,
+                              sync_check=True, frames=frames)
     report("f32 cache, no host sync (sync debug mode error)", wall)
     runs = [("slot buffers NaN-filled", dict(nan_fill=True))]
     if cfg.name == "stablelm-1.6b":
         runs.append(("again, same seed", {}))
     for what, kw in runs:
-        again, wall = decode_run(cfg, params, tokens, max_len, f32,
-                                 frames=frames, **kw)
+        again, wall, _ = decode_run(cfg, params, tokens, max_len, f32,
+                                    frames=frames, **kw)
         report(what, wall)
         same = torch.equal(again, dec)
         print(f"    bitwise equal to the first run: {same}", flush=True)
@@ -2354,8 +2421,8 @@ def drive_serve(mods, cfg, card: str):
         raise SystemExit(f"{cfg.name}: decode disagrees with prefill")
     if cfg.name == "stablelm-1.6b":
         del dec
-        dec16, wall = decode_run(cfg, params, tokens, max_len,
-                                 torch.bfloat16)
+        dec16, wall, _ = decode_run(cfg, params, tokens, max_len,
+                                    torch.bfloat16)
         report("bf16 cache", wall)
         err16 = float((dec16 - pre).abs().max()) / scale
         print(f"    against prefill {err16:.3e} (reported, not gated)",
@@ -2372,11 +2439,370 @@ def drive_serve(mods, cfg, card: str):
     return launches
 
 
+def serve_config(arch: str, cuts: dict):
+    from repro_torch.models import registry
+    return registry.get_config(arch).replace(**cuts)
+
+
+def draw(cfg, batch: int, n: int, dtype, mesh=None, tp: int = 1):
+    """Weights in `dtype` (the rank's blocks under `mesh`: each leaf drawn
+    whole and cut, so every mesh of one tp serves the same model), tokens
+    (batch, n) and, for an encoder, f32 frames at the scale train/data.py
+    draws them; all from seed 0 on the card."""
+    from repro_torch.models import backbone
+    from repro_torch.models.shardings import axis_size
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = backbone.init_params(
+        cfg, gen, tp=axis_size(mesh, "heads") if mesh is not None else tp,
+        dtype=dtype, device="cuda", mesh=mesh)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, n), generator=gen,
+                           device="cuda")
+    frames = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                         generator=gen, device="cuda") * 0.02 \
+        if cfg.encoder_layers else None
+    return params, tokens, frames
+
+
+def prefill_run(cfg, params, tokens, frames, dtype, mesh=None, tp=None):
+    """make_prefill_step's logits on the same tokens (the rank's block
+    under `mesh`)."""
+    from repro_torch.train import step as step_mod
+    batch = {"tokens": tokens}
+    if frames is not None:
+        batch["frames"] = frames
+    out = step_mod.make_prefill_step(cfg, step_mod.RunCfg(
+        param_dtype=dtype), mesh, tp=tp)(params, batch)
+    torch.cuda.synchronize()
+    return out
+
+
+def serve_once(mods, cfg, batch: int, n: int, max_len: int, mesh=None,
+               tp=None) -> dict:
+    """One model's serve path in f32 (phase 14): drawn from seed 0,
+    decoded from an empty cache under sync debug "error", then the
+    prefill on the same tokens; the kernel launches over both. Under
+    `mesh` the rank's blocks of everything returned."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    f32 = torch.float32
+    params, tokens, frames = draw(cfg, batch, n, f32, mesh, tp or 1)
+    for mod in mods:
+        mod.reset_launches()
+    dec, wall, cache = decode_run(cfg, params, tokens, max_len, f32,
+                                  sync_check=True, frames=frames,
+                                  mesh=mesh, tp=tp)
+    pre = prefill_run(cfg, params, tokens, frames, f32, mesh, tp)
+    return {"decode": dec, "prefill": pre, "cache": cache, "wall": wall,
+            "launches": {k: c for mod in mods
+                         for k, c in mod.LAUNCHES.items()},
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def gathered(logits: dict, mesh) -> dict:
+    """Each of a rank's blocks of logits (its rows, its vocab block)
+    whole (collectives: every rank calls it)."""
+    from repro_torch.models.shardings import resolve, whole
+    spec = resolve(("batch", None, "vocab"), mesh)
+    return {k: whole(t, spec, mesh) for k, t in logits.items()}
+
+
+def logits_err(got, want, vocab: int) -> float:
+    """max |got - want| over max(1, max |want|) within the vocab; inf
+    where the padded rows past it differ (both are masked alike)."""
+    if not torch.equal(got[..., vocab:], want[..., vocab:]):
+        return math.inf
+    got, want = got[..., :vocab], want[..., :vocab]
+    return float((got - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+def warm_groups(mesh) -> None:
+    """One all-reduce on each of the mesh's process groups, so that their
+    NCCL communicators exist before a decode loop that must not sync."""
+    import torch.distributed as dist
+    for name in mesh.mesh_dim_names:
+        dist.all_reduce(torch.zeros(1, device="cuda"),
+                        group=mesh.get_group(name))
+    torch.cuda.synchronize()
+
+
+def nonzero(launches: dict) -> dict:
+    return {k: c for k, c in launches.items() if c}
+
+
+def serve_mesh_one_card(mods, card: str) -> dict:
+    """Phase 14 on one card: every model of SERVE_MESH served with no
+    mesh, then with --mesh 1x1 over one NCCL process group (each after
+    the other, so neither runs cold); bitwise equal decode and prefill
+    logits and caches, the 1x1 run's launches the config's."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.train import step as step_mod
+    from repro_torch.tree import tree_leaves
+    print(f"[serve-mesh] --mesh 1x1 against none: "
+          f"{', '.join(a for a, *_ in SERVE_MESH)}", flush=True)
+    found, failures = {}, []
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_production_mesh("1x1")
+        warm_groups(mesh)
+        for arch, cuts, batch, n, max_len in SERVE_MESH:
+            cfg = serve_config(arch, cuts)
+            plain = serve_once(mods, cfg, batch, n, max_len)
+            one = serve_once(mods, cfg, batch, n, max_len, mesh)
+            same = {k: torch.equal(one[k], plain[k])
+                    for k in ("decode", "prefill")}
+            sh = tree_leaves(step_mod.cache_shardings(cfg, mesh))
+            same["cache"] = all(torch.equal(s.whole(a), b) for s, a, b in
+                                zip(sh, tree_leaves(one["cache"]),
+                                    tree_leaves(plain["cache"])))
+            want = serve_expected_launches(cfg, setups=1)
+            print(f"  {arch} ({cfg.num_layers} layers, batch {batch}, {n} "
+                  f"tokens): 1x1 bitwise none: {same}; prefill launches at "
+                  f"1x1 {nonzero(one['launches'])} (want {nonzero(want)}); "
+                  f"decode {plain['wall'] / n * 1e3:.4f} ms a token with "
+                  f"none, {one['wall'] / n * 1e3:.4f} at 1x1; peak "
+                  f"{one['peak']} B at 1x1 [{card}]", flush=True)
+            if not all(same.values()) or one["launches"] != want or \
+                    not torch.isfinite(one["decode"]).all():
+                failures.append(f"{arch}: {same}, launches "
+                                f"{one['launches']}")
+            found[f"{cfg.name} {cfg.num_layers} layers serve mesh 1x1"] = \
+                one["launches"]
+            del one, plain
+    finally:
+        dist.destroy_process_group()
+    if failures:
+        raise SystemExit(f"serve mesh 1x1: {failures}")
+    return found
+
+
+def serve_mesh_jobs(n: int) -> list:
+    """Phase 14's runs on n > 1 cards besides Yi-34B: (index into
+    SERVE_MESH, mesh), every model on 1xn and StableLM on (n/2)x2."""
+    return [*((i, f"1x{n}") for i in range(len(SERVE_MESH))),
+            (0, f"{n // 2}x2")]
+
+
+def serve_yi(mods, mesh) -> dict:
+    """Yi-34B at full width and depth on the ranks of `mesh` (see phase
+    14): the numbers each rank reports."""
+    import torch.distributed as dist
+    from repro_torch.configs import yi_34b
+    from repro_torch.tree import tree_leaves
+    cfg = yi_34b.CONFIG
+    batch, n, max_len = YI_SERVE
+    out = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, tokens, _ = draw(cfg, batch, n, f32, mesh)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["weights_b"] = torch.cuda.memory_allocated()
+    warm_groups(mesh)
+    for mod in mods:
+        mod.reset_launches()
+    dec, out["wall"], cache = decode_run(cfg, params, tokens, max_len, f32,
+                                         sync_check=True, mesh=mesh)
+    out["cache_b"] = sum(t.numel() * t.element_size()
+                         for t in tree_leaves(cache))
+    del cache
+    again, out["wall_nan"], _ = decode_run(cfg, params, tokens, max_len, f32,
+                                           nan_fill=True, mesh=mesh)
+    out["nan_same"] = torch.equal(again, dec)
+    del again
+    pre = prefill_run(cfg, params, tokens, None, f32, mesh)
+    out["peak_f32"] = torch.cuda.max_memory_allocated()
+    whole = gathered({"decode": dec, "prefill": pre}, mesh)
+    out["err"] = logits_err(whole["decode"], whole["prefill"],
+                            cfg.vocab_size)
+    out["finite"] = bool(torch.isfinite(whole["decode"]).all())
+    out["launches"] = {k: c for mod in mods for k, c in mod.LAUNCHES.items()}
+    ref = whole["decode"].clone()
+    dist.broadcast(ref, src=0)
+    out["ranks_agree"] = torch.equal(ref, whole["decode"])
+    del params, pre, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p16, _, _ = draw(cfg, batch, n, bf16, mesh)
+    d16 = [decode_run(cfg, p16, tokens, max_len, bf16, sync_check=i == 0,
+                      mesh=mesh)[:2] for i in range(2)]
+    out["peak_bf16"] = torch.cuda.max_memory_allocated()
+    out["wall_bf16"] = [w for _, w in d16]
+    out["bf16_same"] = torch.equal(d16[0][0], d16[1][0])
+    out["bf16_finite"] = bool(torch.isfinite(d16[0][0]).all())
+    w16 = gathered({"decode": d16[0][0]}, mesh)
+    out["bf16_err"] = logits_err(w16["decode"], whole["decode"],
+                                 cfg.vocab_size)
+    del p16, d16, w16, whole
+    return out
+
+
+def serve_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One rank of phase 14 on several cards (spawned, one per card):
+    Yi-34B, then each of `serve_mesh_jobs` twice; the numbers to
+    `out_dir`/serve<rank>.json after each job, and rank 0's gathered
+    logits of each job's first run to `out_dir`/job<j>.pt."""
+    mods = rank_setup(rank, world, port)
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_production_mesh
+    out = {"jobs": []}
+    path = Path(out_dir) / f"serve{rank}.json"
+    try:
+        out["yi"] = serve_yi(mods, make_production_mesh(f"1x{world}"))
+        path.write_text(json.dumps(out))
+        for j, (i, name) in enumerate(serve_mesh_jobs(world)):
+            arch, cuts, batch, n, max_len = SERVE_MESH[i]
+            cfg = serve_config(arch, cuts)
+            mesh = make_production_mesh(name)
+            warm_groups(mesh)
+            runs, rec = [], {"wall": [], "peak": [], "launches": []}
+            for _ in range(2):
+                got = serve_once(mods, cfg, batch, n, max_len, mesh)
+                for k in ("wall", "peak", "launches"):
+                    rec[k].append(got[k])
+                runs.append(gathered({k: got[k] for k in
+                                      ("decode", "prefill")}, mesh))
+                del got
+            rec["same"] = all(torch.equal(runs[0][k], runs[1][k])
+                              for k in runs[0])
+            agree = []
+            for k, t in runs[0].items():
+                ref = t.clone()
+                dist.broadcast(ref, src=0)
+                agree.append(torch.equal(ref, t))
+                del ref
+            rec["agree"] = all(agree)
+            if rank == 0:
+                torch.save({k: t.cpu() for k, t in runs[0].items()},
+                           Path(out_dir) / f"job{j}.pt")
+            out["jobs"].append(rec)
+            path.write_text(json.dumps(out))
+            del runs
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_mesh_cards(mods, n: int, card: str) -> dict:
+    """Phase 14 on n > 1 cards: Yi-34B and `serve_mesh_jobs(n)` on one
+    spawned rank per card, then each job's model alone on one card in
+    its tp layout."""
+    import shutil
+    import torch.multiprocessing as mp
+    out_dir = ROOT / "build" / "serve_ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    jobs = serve_mesh_jobs(n)
+    print(f"[serve-mesh] {n} ranks, one per card: yi-34b full on 1x{n}; "
+          + "; ".join(f"{SERVE_MESH[i][0]} {m}" for i, m in jobs),
+          flush=True)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(serve_rank, args=(n, free_port(),
+                                               str(out_dir)),
+                             nprocs=n, start_method="spawn", join=False)
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > 900:
+                raise SystemExit("serve ranks timed out")
+    except BaseException:
+        for r in range(n):          # what each rank found before it
+            path = out_dir / f"serve{r}.json"
+            if path.exists():
+                print(f"  rank {r} wrote: {path.read_text()}", flush=True)
+        raise
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=30)
+    print(f"  ranks done in {time.perf_counter() - t0:.1f} s", flush=True)
+    ranks = [json.loads((out_dir / f"serve{r}.json").read_text())
+             for r in range(n)]
+    failures, found = [], {}
+    from repro_torch.configs import yi_34b
+    batch, ntok, max_len = YI_SERVE
+    want = serve_expected_launches(yi_34b.CONFIG, setups=0)
+    print(f"[serve-mesh] yi-34b, 60 layers, 1x{n}, batch {batch}, {ntok} "
+          f"tokens, caches of {max_len} slots", flush=True)
+    for r, rank in enumerate(ranks):
+        yi = rank["yi"]
+        print(f"  rank {r}: init {yi['init_s']:.2f} s, weights "
+              f"{yi['weights_b']} B, cache {yi['cache_b']} B; f32 decode "
+              f"{yi['wall'] / ntok * 1e3:.4f} ms a token, "
+              f"{batch * ntok / yi['wall']:.1f} tokens/s (NaN-filled rerun "
+              f"{yi['wall_nan'] / ntok * 1e3:.4f}; bitwise "
+              f"{yi['nan_same']}); peak {yi['peak_f32']} B; decode against "
+              f"prefill {yi['err']:.3e} (tol {SERVE_TOL:g}); ranks agree "
+              f"{yi['ranks_agree']}; launches {nonzero(yi['launches'])} "
+              f"(want {nonzero(want)}) [{card}]", flush=True)
+        print(f"  rank {r}: bf16 weights and cache: decode "
+              f"{[round(w / ntok * 1e3, 4) for w in yi['wall_bf16']]} ms a "
+              f"token, peak {yi['peak_bf16']} B, same-seed rerun bitwise "
+              f"{yi['bf16_same']}, finite {yi['bf16_finite']}, against the "
+              f"f32 logits {yi['bf16_err']:.3e} (reported) [{card}]",
+              flush=True)
+        if not (yi["nan_same"] and yi["err"] <= SERVE_TOL and yi["finite"]
+                and yi["ranks_agree"] and yi["launches"] == want
+                and yi["bf16_same"] and yi["bf16_finite"]):
+            failures.append(f"yi-34b rank {r}: {yi}")
+    found[f"yi-34b 60 layers serve 1x{n} (rank 0)"] = \
+        ranks[0]["yi"]["launches"]
+    for j, (i, name) in enumerate(jobs):
+        arch, cuts, batch, ntok, max_len = SERVE_MESH[i]
+        cfg = serve_config(arch, cuts)
+        tp = int(name.split("x")[-1])
+        want = serve_expected_launches(cfg, setups=1)
+        label = f"{arch} {cfg.num_layers} layers {name}"
+        for r, rank in enumerate(ranks):
+            rec = rank["jobs"][j]
+            print(f"  {label} rank {r}: decode "
+                  f"{[round(w / ntok * 1e3, 4) for w in rec['wall']]} ms a "
+                  f"token, peak {rec['peak']} B, two runs bitwise "
+                  f"{rec['same']}, ranks agree {rec['agree']} [{card}]",
+                  flush=True)
+            if not (rec["same"] and rec["agree"]) or \
+                    any(l != want for l in rec["launches"]):
+                failures.append(f"{label} rank {r}: {rec}")
+        one = serve_once(mods, cfg, batch, ntok, max_len, tp=tp)
+        mesh_out = torch.load(out_dir / f"job{j}.pt")
+        errs = {k: logits_err(mesh_out[k].cuda(), one[k], cfg.vocab_size)
+                for k in mesh_out}
+        print(f"  {label} against one process at tp {tp}: decode "
+              f"{errs['decode']:.3e}, prefill {errs['prefill']:.3e} (tol "
+              f"{SERVE_MESH_TOL:g})", flush=True)
+        if not max(errs.values()) <= SERVE_MESH_TOL:
+            failures.append(f"{label}: against one process {errs}")
+        found[f"{label} serve (rank 0)"] = ranks[0]["jobs"][j]["launches"][0]
+        del one, mesh_out
+    if failures:
+        raise SystemExit(f"serve mesh phase: {failures}")
+    return found
+
+
+def drive_serve_mesh(mods, card: str) -> dict:
+    """Phase 14 with one rank per card the script finds."""
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    found = serve_mesh_one_card(mods, card) if n == 1 else \
+        serve_mesh_cards(mods, n, card)
+    print(f"[serve-mesh] phase 14 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return found
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="smoke run of the port on "
                                  "the GPUs (see the module's docstring)")
-    ap.add_argument("--only", choices=["mesh"],
+    ap.add_argument("--only", choices=["mesh", "serve-mesh"],
                     help="build the kernels and run this phase alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2433,8 +2859,10 @@ def main(argv=None) -> int:
                          f"spilling {spilled}, others {others}")
 
     mods = (fa, gm, rg, ml)
-    if args.only == "mesh":
-        print(json.dumps({"mesh_launches": drive_mesh(mods)}))
+    if args.only:
+        phase = {"mesh": drive_mesh,
+                 "serve-mesh": lambda m: drive_serve_mesh(m, card)}
+        print(json.dumps({f"{args.only}_launches": phase[args.only](mods)}))
         print(card_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2505,6 +2933,7 @@ def main(argv=None) -> int:
     print(f"[slice] phase 12 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     mesh_launches = drive_mesh(mods)
+    serve_mesh_launches = drive_serve_mesh(mods, card)
     # phase 11: serving
     print("[serve] card against the CPU", flush=True)
     check_serve_reference()
@@ -2523,6 +2952,7 @@ def main(argv=None) -> int:
                    xl.name: xl_launches[n], dsc.name: ds_launches[n],
                    wh.name: wh_launches[n],
                    **{k: v[n] for k, v in mesh_launches.items()},
+                   **{k: v[n] for k, v in serve_mesh_launches.items()},
                    **{f"{k} serve": v[n] for k, v in serve_launches.items()}}
                for n in names}
 

@@ -17,10 +17,13 @@ stacked (n_periods, ...) subtree per period position, or None),
 (unstacked caches)}, each KV cache's `pos` stacked per period.
 
 `param_axes` (and `stack_axes`, `stack_cache_axes`) name every leaf's
-logical axes, the reference's trees. Under a mesh, `init_params` keeps
+logical axes, the reference's trees (the cache's but for the mLSTM's
+state, `blocks.block_cache_axes`). Under a mesh, `init_params` keeps
 the rank's block of each leaf, and `forward` runs the blocks on them:
 the embedding and the head split over `vocab`, the logits the rank's
-vocab block, which `lm_loss` reduces with no gather.
+vocab block, which `lm_loss` reduces with no gather. `init_cache`
+allocates only the rank's block of the cache (its rows, kv slots,
+lanes or heads), and `decode_step` and `setup_cross_cache` run on it.
 """
 from __future__ import annotations
 
@@ -51,10 +54,6 @@ def scan_layout(cfg: ArchConfig, pattern=None,
     return period, L // period, L % period
 
 
-def _stack(trees):
-    return tree_map(lambda *xs: torch.stack(xs), *trees)
-
-
 def _unstack(tree, n: int):
     """n per-layer views of a stacked subtree (None -> n Nones). One
     unbind per leaf, so the backward stacks each leaf's gradient once
@@ -77,7 +76,9 @@ def _stacked_axes(tree):
 def init_stack(gen, cfg: ArchConfig, tp: int, dtype, device="cpu",
                pattern=None, num_layers=None, mesh=None) -> Dict[str, Any]:
     """The stack's parameters; under `mesh`, each layer's are cut to the
-    rank's blocks as soon as they are drawn."""
+    rank's blocks as soon as they are drawn. Each layer is written into
+    its slice of the stacked buffers as it is drawn, so one layer is the
+    transient (a rank of Yi-34B in f32 holds 34 GB of them)."""
     period, n_periods, n_tail = scan_layout(cfg, pattern, num_layers)
     pattern = pattern or cfg.block_pattern
 
@@ -89,8 +90,15 @@ def init_stack(gen, cfg: ArchConfig, tp: int, dtype, device="cpu",
 
     scan_params = []
     for pos in range(period):
-        layers = [block(pattern[pos]) for _ in range(n_periods)]
-        scan_params.append(_stack(layers) if layers else None)
+        stacked = None
+        for i in range(n_periods):
+            layer = block(pattern[pos])
+            if stacked is None:
+                stacked = tree_map(lambda t: t.new_empty((n_periods,) +
+                                                         tuple(t.shape)),
+                                   layer)
+            tree_map(lambda buf, t: buf[i].copy_(t), stacked, layer)
+        scan_params.append(stacked)
     tail = tuple(block(pattern[i % period]) for i in range(n_tail))
     return {"scan": tuple(scan_params), "tail": tail}
 
@@ -160,13 +168,14 @@ def apply_stack(stack_p, x, cfg: ArchConfig, tp: int, *, positions,
 
 
 def init_stack_cache(cfg: ArchConfig, batch: int, max_len: int, tp: int,
-                     dtype=torch.bfloat16, device="cpu"):
-    """The stack's decode caches: per period position, one layer's cache
-    expanded to (n_periods, ...) (one layer's copy is the transient)."""
+                     dtype=torch.bfloat16, device="cpu", mesh=None):
+    """The stack's decode caches for `batch` rows: per period position,
+    one layer's cache expanded to (n_periods, ...) (one layer's copy is
+    the transient); under `mesh` the rank's blocks."""
     period, n_periods, n_tail = scan_layout(cfg)
     pattern = cfg.block_pattern
     one = lambda btype: blocks.init_block_cache(btype, cfg, batch, max_len,
-                                                tp, dtype, device)
+                                                tp, dtype, device, mesh)
     scan = tuple(
         tree_map(lambda t: t.expand(n_periods, *t.shape).contiguous(),
                  one(pattern[pos])) if n_periods else None
@@ -196,18 +205,19 @@ def _write_back(cache, new) -> None:
             old.copy_(nw)
 
 
-def decode_stack(stack_p, stack_c, x, cfg: ArchConfig, tp: int):
+def decode_stack(stack_p, stack_c, x, cfg: ArchConfig, tp: int, mesh=None):
     """One decode step over the stack, a Python loop over the periods.
 
     Each layer decodes against its cache as views of its slice of the
     stacked buffers (or its tail entry), and what it returns is written
     back into them in place: no full-size cache is rebuilt per token.
-    Returns (x, stack_c), the cache tree passed in, now one step on."""
+    Returns (x, stack_c), the cache tree passed in, now one step on.
+    Under `mesh`, the rank's blocks of the weights and the cache."""
     pattern = cfg.block_pattern
     period = len(pattern)
 
     def step(btype, p, x, c):
-        x, nc = blocks.decode_block(btype, p, x, c, cfg, tp)
+        x, nc = blocks.decode_block(btype, p, x, c, cfg, tp, mesh)
         _write_back(c, nc)
         return x
 
@@ -374,31 +384,36 @@ def forward(params, tokens, cfg: ArchConfig, tp: int = 1, mesh=None, *,
     return _logits(params, x, cfg, mesh), aux
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("decoding under a mesh is not ported "
-                                  "(ROADMAP Queue 1 item 11)")
-
-
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, tp: int = 1,
-               dtype=torch.bfloat16, device=None):
+               dtype=torch.bfloat16, device=None, mesh=None):
     """The decode cache for `batch` sequences of up to `max_len` tokens
     (a ring of `attention_window` slots for local attention), on
     `device` (the card unless the caller names another). An
     encoder-decoder model's cross K/V are zeros until
-    `setup_cross_cache` fills them."""
-    return init_stack_cache(cfg, batch, max_len, tp, dtype,
-                            resolve_device(device, "init_cache"))
+    `setup_cross_cache` fills them. Under `mesh`, `batch` is the global
+    batch, which must split evenly over the data ranks, and only the
+    rank's block is allocated (`stack_cache_axes`): its rows, and its kv
+    slots, lanes or heads of each layer's."""
+    check_mesh(cfg, tp, mesh)
+    dp = axis_size(mesh, "batch")
+    if batch % dp:
+        raise ValueError(f"a global batch of {batch} does not split over "
+                         f"{dp} data rank(s)")
+    return init_stack_cache(cfg, batch // dp, max_len, tp, dtype,
+                            resolve_device(device, "init_cache"), mesh)
 
 
 def decode_step(params, cache, tokens, cfg: ArchConfig, tp: int = 1,
                 mesh=None):
     """One decode step. tokens: (B, 1) int. Returns (logits (B, 1, V)
-    f32, cache); the cache passed in is updated in place and returned."""
-    _no_mesh(mesh)
-    x = _embed(params, tokens, cfg)
-    x, cache = decode_stack(params["stack"], cache, x, cfg, tp)
-    return _logits(params, x, cfg), cache
+    f32, cache); the cache passed in is updated in place and returned.
+    Under `mesh`, params and the cache hold the rank's blocks
+    (`init_params` and `init_cache` with the mesh), tokens its rows,
+    and the logits are its vocab block, as `forward` gives them."""
+    check_mesh(cfg, tp, mesh)
+    x = _embed(params, tokens, cfg, mesh)
+    x, cache = decode_stack(params["stack"], cache, x, cfg, tp, mesh)
+    return _logits(params, x, cfg, mesh), cache
 
 
 @torch.no_grad()
@@ -408,9 +423,13 @@ def setup_cross_cache(params, cache, frames, cfg: ArchConfig, tp: int = 1,
     remat, and write each decoder layer's cross K/V into the cache in
     place, one layer at a time into its slice of the stacked buffers
     (cast to their dtype), as `decode_stack` writes back. Returns the
-    cache passed in."""
-    _no_mesh(mesh)
-    enc_out, _ = encode(params, frames, cfg, tp, impl=impl, remat=False)
+    cache passed in. Under `mesh`, frames are the rank's rows and each
+    layer's cross K/V its kv slots, projected from the encoder's output
+    once it has entered the tensor-parallel region."""
+    check_mesh(cfg, tp, mesh)
+    enc_out, _ = encode(params, frames, cfg, tp, impl=impl, remat=False,
+                        mesh=mesh)
+    enc_out = to_model(enc_out, mesh)
 
     def fill(p, c):
         for buf, t in zip((c["cross_k"], c["cross_v"]),

@@ -26,7 +26,10 @@ projections are added up over `model`. `attn_cross` projects the
 encoder's output, which enters the decoder's tensor-parallel regions
 once (`backbone.forward`), to its own kv slots. The residual stream
 stays replicated where the reference splits it over the sequence
-(`seq_sp`). Decoding runs on one device only. An unknown block type
+(`seq_sp`). Decoding splits the same way: each rank decodes its rows
+against its block of the cache (`block_cache_axes`: its kv slots, its
+lanes, or, for the mLSTM, its heads; MLA's latent cache and the
+sLSTM's state are whole on every `model` rank). An unknown block type
 raises ValueError, and so does a split that the block's heads do not
 allow (`check_split`).
 """
@@ -41,7 +44,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.shardings import (SCALAR, axis_index, axis_size,
-                                          from_model, to_model)
+                                          from_model, local_extent,
+                                          to_model)
 from repro_torch.models.tp_padding import HeadPlan, plan_heads
 
 ATTN_TYPES = ("attn", "local_attn", "attn_moe")
@@ -141,12 +145,16 @@ ATTN_AXES = {"wq": (None, "heads", None), "wk": (None, "kv_heads", None),
 
 
 def _q_mask(plan: HeadPlan, dtype, device, mesh=None):
-    """The mask of the rank's q slots: the plan's physical slots split
-    evenly over `model` (each rank's q slots group onto its own kv
-    slots, since slot s reads kv slot s // q_per_phys_kv)."""
+    """`plan.q_mask` of the rank's q slots: the plan's physical slots
+    split evenly over `model` (each rank's q slots group onto its own kv
+    slots, since slot s reads kv slot s // q_per_phys_kv). Built on the
+    device from the plan's layout, each kv group's live heads first and
+    then its padding, so a decode step copies nothing from the host."""
     n = plan.n_q_phys // axis_size(mesh, "heads")
     lo = axis_index(mesh, "heads") * n
-    return torch.as_tensor(plan.q_mask[lo:lo + n], device=device).to(dtype)
+    slots = torch.arange(lo, lo + n, device=device)
+    return (slots % (plan.n_q_phys // plan.n_kv) <
+            plan.n_q // plan.n_kv).to(dtype)
 
 
 def _project_q(p, x, plan: HeadPlan, cfg, positions, mesh=None):
@@ -213,15 +221,16 @@ def cross_attn(p, x, k, v, cfg: ArchConfig, tp: int, *, positions,
 
 
 def decode_attn(p, x, cache, cfg: ArchConfig, tp: int, *, window=0,
-                ring=False):
-    """One token, x (B, 1, D), against the KV cache; returns (y, cache)."""
+                ring=False, mesh=None):
+    """One token, x (B, 1, D), against the KV cache; returns (y, cache).
+    Under `mesh`, p and the cache hold the rank's heads and kv slots."""
     plan = head_plan(cfg, tp)
     positions = cache["pos"].expand(x.shape[0], 1)
-    q, k, v = _project_qkv(p, x, plan, cfg, positions)
+    q, k, v = _project_qkv(p, to_model(x, mesh), plan, cfg, positions, mesh)
     cache = att.cache_update(cache, k, v, ring=ring)
     # q positions refer to the *pre-update* pos (the cache now holds it)
     out = att.decode_attend(q, cache, positions, ring=ring, window=window)
-    return _attn_out(p, out, plan, x.dtype), cache
+    return _attn_out(p, out, plan, x.dtype, mesh), cache
 
 
 # ----------------------------------------------------------- block API
@@ -278,7 +287,10 @@ def block_axes(btype: str, cfg: ArchConfig) -> dict:
 
 
 def block_cache_axes(btype: str, cfg: ArchConfig) -> dict:
-    """Logical sharding axes mirroring init_block_cache's structure."""
+    """Logical sharding axes mirroring init_block_cache's structure: the
+    reference's, but for the mLSTM's state, which is split over its
+    heads as the cell runs them under a mesh (the reference splits C's
+    and n's value lanes, `d_ff`, and keeps m whole)."""
     _refuse(btype, decode=True)
     kv = {"k": ("batch", None, "kv_heads", None),
           "v": ("batch", None, "kv_heads", None), "pos": SCALAR}
@@ -294,8 +306,8 @@ def block_cache_axes(btype: str, cfg: ArchConfig) -> dict:
     if btype == "rglru":
         return {"h": ("batch", "d_ff"), "conv": ("batch", None, "d_ff")}
     if btype == "mlstm":
-        return {"C": ("batch", None, None, "d_ff"),
-                "n": ("batch", None, "d_ff"), "m": ("batch", None),
+        return {"C": ("batch", "heads", None, None),
+                "n": ("batch", "heads", None), "m": ("batch", "heads"),
                 "conv": ("batch", None, "d_ff")}
     return {"h": ("batch", None, None), "c": ("batch", None, None),
             "n": ("batch", None, None), "m": ("batch", None, None)}
@@ -348,60 +360,69 @@ def apply_block(btype: str, p: dict, x, cfg: ArchConfig, tp: int, *,
 
 
 def init_block_cache(btype: str, cfg: ArchConfig, batch: int, max_len: int,
-                     tp: int, dtype=torch.bfloat16, device="cpu"):
-    """The block's decode cache; the recurrent states are f32 whatever
-    `dtype` is, as in the reference. `attn_cross`'s is {"self": its KV
-    cache, "cross_k", "cross_v": (batch, encoder_seq, N, K)}, zeros
-    until `backbone.setup_cross_cache` writes the encoder's."""
+                     tp: int, dtype=torch.bfloat16, device="cpu", mesh=None):
+    """The block's decode cache for `batch` rows; the recurrent states are
+    f32 whatever `dtype` is, as in the reference. `attn_cross`'s is
+    {"self": its KV cache, "cross_k", "cross_v": (batch, encoder_seq, N,
+    K)}, zeros until `backbone.setup_cross_cache` writes the encoder's.
+    Under `mesh`, the rank's block of it (`block_cache_axes`), `batch`
+    the rank's rows."""
     _refuse(btype, decode=True)
-    plan = head_plan(cfg, tp)
-    if btype == "attn_cross":
-        cross = lambda: torch.zeros((batch, cfg.encoder_seq, plan.n_kv_phys,
-                                     cfg.kq_dim), dtype=dtype, device=device)
-        return {"self": att.init_kv_cache(batch, max_len, plan.n_kv_phys,
-                                          cfg.kq_dim, dtype, device=device),
-                "cross_k": cross(), "cross_v": cross()}
-    if btype in ATTN_TYPES:
-        ring = btype == "local_attn"
-        return att.init_kv_cache(batch, max_len, plan.n_kv_phys,
-                                 cfg.kq_dim, dtype, ring=ring,
-                                 window=cfg.attention_window if ring else 0,
-                                 device=device)
     if btype == "mla_moe":
         return mla_mod.init_mla_cache(cfg, batch, max_len, dtype, device)
     if btype == "rglru":
-        return rglru_mod.init_rglru_state(cfg, batch, device=device)
-    return XLSTM[btype][2](cfg, batch, device)
+        return rglru_mod.init_rglru_state(cfg, batch, device=device,
+                                          mesh=mesh)
+    if btype == "mlstm":
+        return xlstm_mod.init_mlstm_state(cfg, batch, device, mesh)
+    if btype == "slstm":
+        return xlstm_mod.init_slstm_state(cfg, batch, device)
+    n_kv = local_extent(head_plan(cfg, tp).n_kv_phys, "kv_heads", mesh)
+    if btype == "attn_cross":
+        cross = lambda: torch.zeros((batch, cfg.encoder_seq, n_kv,
+                                     cfg.kq_dim), dtype=dtype, device=device)
+        return {"self": att.init_kv_cache(batch, max_len, n_kv, cfg.kq_dim,
+                                          dtype, device=device),
+                "cross_k": cross(), "cross_v": cross()}
+    ring = btype == "local_attn"
+    return att.init_kv_cache(batch, max_len, n_kv, cfg.kq_dim, dtype,
+                             ring=ring,
+                             window=cfg.attention_window if ring else 0,
+                             device=device)
 
 
-def decode_block(btype: str, p: dict, x, cache, cfg: ArchConfig, tp: int):
-    """Single-token decode. x: (B, 1, D). Returns (x, new cache)."""
+def decode_block(btype: str, p: dict, x, cache, cfg: ArchConfig, tp: int,
+                 mesh=None):
+    """Single-token decode. x: (B, 1, D). Returns (x, new cache). Under
+    `mesh`, p and the cache hold the rank's blocks and x its rows."""
     _refuse(btype, decode=True)
     if btype in XLSTM:
         h, cache = XLSTM[btype][1](p["cell"],
                                    rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
-                                   state=cache)
+                                   state=cache, mesh=mesh)
         return x + h, cache
     if btype == "mla_moe":
         h, cache = mla_mod.decode_mla(p["mla"],
                                       rmsnorm(x, p["ln1"], cfg.norm_eps),
-                                      cache, cfg)
+                                      cache, cfg, mesh)
         x = x + h
         y = moe_mod.decode_moe(p["moe"], rmsnorm(x, p["ln2"], cfg.norm_eps),
-                               cfg)
+                               cfg, mesh)
         return x + y, cache
     if btype == "rglru":
         h, cache = rglru_mod.apply_rglru(
-            p["rnn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, state=cache)
+            p["rnn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, state=cache,
+            mesh=mesh)
         x = x + h
-        y = apply_mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+        y = apply_mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), mesh)
         return x + y, cache
     ring = btype == "local_attn"
     cross = btype == "attn_cross"
     h, self_c = decode_attn(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
                             cache["self"] if cross else cache, cfg, tp,
                             ring=ring,
-                            window=cfg.attention_window if ring else 0)
+                            window=cfg.attention_window if ring else 0,
+                            mesh=mesh)
     x = x + h
     if cross:
         cache = dict(cache, self=self_c)
@@ -411,12 +432,13 @@ def decode_block(btype: str, p: dict, x, cache, cfg: ArchConfig, tp: int):
             p["xattn"], rmsnorm(x, p["lnx"], cfg.norm_eps), cache["cross_k"],
             cache["cross_v"], cfg, tp,
             positions=(self_c["pos"] - 1).expand(B, 1),
-            k_positions=torch.arange(T, device=x.device)[None].expand(B, T))
+            k_positions=torch.arange(T, device=x.device)[None].expand(B, T),
+            mesh=mesh)
     else:
         cache = self_c
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if btype == "attn_moe":
-        y = moe_mod.decode_moe(p["moe"], h2, cfg)
+        y = moe_mod.decode_moe(p["moe"], h2, cfg, mesh)
     else:
-        y = apply_mlp(p["mlp"], h2)
+        y = apply_mlp(p["mlp"], h2, mesh)
     return x + y, cache

@@ -12,7 +12,10 @@ their own latent (`w_dq`, `q_ln`, `w_uq`) when q_lora_rank > 0.
 
 Decode caches only the latent c_kv and the rotary key per position
 (`init_mla_cache`) and absorbs `w_uk` into the query and `w_uv` into
-the output (`decode_mla`), in f32 as in the reference.
+the output (`decode_mla`), in f32 as in the reference. Under a mesh
+the latent cache is whole on every `model` rank (the reference's axes
+split it over `batch` only), and each rank runs the absorbed decode on
+its heads.
 
 `mla_axes` names its weights' logical axes. Under a mesh each `model`
 rank holds its heads of `w_q` (or `w_uq`), `w_uk`, `w_uv` and `w_o`;
@@ -127,18 +130,20 @@ def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int,
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def decode_mla(p: dict, x, cache: dict, cfg: ArchConfig):
+def decode_mla(p: dict, x, cache: dict, cfg: ArchConfig, mesh=None):
     """Absorbed decode: the scores are taken against the latent cache
     directly. x: (B, 1, D). The new latent and rotary key are written in
     place at slot min(pos, T - 1) (dynamic_update_slice clamps its start
     so in the reference); the returned dict holds them and pos + 1.
     Slots after pos are masked, and zeroed so that one never written adds
-    nothing whatever its buffer holds."""
+    nothing whatever its buffer holds. Under `mesh`, p holds the rank's
+    heads and x and the cache its rows; every `model` rank writes the
+    same latent, and `w_o`'s partial sums are added over `model`."""
     m = cfg.mla
     B = x.shape[0]
     pos = cache["pos"]
     positions = pos.expand(B, 1)
-    q_nope, q_rope = _queries(p, x, positions, m, cfg.rope_theta)
+    q_nope, q_rope = _queries(p, x, positions, m, cfg.rope_theta, mesh)
 
     ckv_new = blocks.matmul(x, p["w_dkv"])
     c_kv_new = _rmsnorm(ckv_new[..., :m.kv_lora_rank], p["kv_ln"])
@@ -164,4 +169,5 @@ def decode_mla(p: dict, x, cache: dict, cfg: ArchConfig):
     o_lat = torch.einsum("bhst,btr->bshr", pr, ckv)            # (B,1,h,R)
     out = torch.einsum("bshr,rhk->bshk", o_lat,
                        p["w_uv"].float()).to(x.dtype)
-    return blocks.einsum("bshk,hkd->bsd", out, p["w_o"]), cache
+    return from_model(blocks.einsum("bshk,hkd->bsd", out, p["w_o"]),
+                      mesh), cache

@@ -177,16 +177,21 @@ def apply_moe(p: dict, x, cfg: ArchConfig, capacity: Optional[int] = None,
     return y.to(x.dtype), from_model(aux, mesh)
 
 
-def decode_moe(p: dict, x, cfg: ArchConfig):
+def decode_moe(p: dict, x, cfg: ArchConfig, mesh=None):
     """Decode-path MoE (S small), the reference's dense-gather form:
     every expert runs on the tiny token set, and each token's output is
     its experts' outputs weighted by its renormalised top-k gates, plus
     the shared experts. Nothing is dropped (apply_moe drops tokens over
     capacity). The products are plain, as the reference computes them
-    outside any kernel. x: (B, S, D)."""
+    outside any kernel. x: (B, S, D). Under `mesh`, p holds the rank's
+    experts and x its rows: the router's logits are gathered over
+    `model` and the top-k taken over every expert, the rank's experts
+    run on every token with its columns of the combine weights, and the
+    partial outputs (with the shared experts' `d_ff` block's) are added
+    over `model`."""
     moe = cfg.moe
-    E = p["router"].shape[1]
-    logits = blocks.matmul(x.float(), p["router"])
+    logits = gather_model(blocks.matmul(x.float(), p["router"]), mesh)
+    E = logits.shape[-1]
     if E > moe.num_experts:                                 # mask padding
         pad = torch.arange(E, device=x.device) >= moe.num_experts
         logits = torch.where(pad, torch.full_like(logits, -1e30), logits)
@@ -197,6 +202,9 @@ def decode_moe(p: dict, x, cfg: ArchConfig):
     # the one-hot by comparison with a fixed class count: no host sync
     onehot = (idx[..., None] == torch.arange(E, device=x.device)).float()
     w = torch.einsum("bsk,bske->bse", gate_vals, onehot)
+    n = p["w_gate"].shape[0]                # the rank's experts
+    if n < E:
+        w = w.narrow(-1, axis_index(mesh, "experts") * n, n)
     h = F.silu(blocks.einsum("bsd,edf->ebsf", x, p["w_gate"]))
     h = h * blocks.einsum("bsd,edf->ebsf", x, p["w_up"])
     out = blocks.einsum("ebsf,efd->ebsd", h, p["w_down"])
@@ -205,4 +213,4 @@ def decode_moe(p: dict, x, cfg: ArchConfig):
         hs = F.silu(blocks.matmul(x, p["ws_gate"])) * \
             blocks.matmul(x, p["ws_up"])
         y = y + blocks.matmul(hs, p["ws_down"])
-    return y.to(x.dtype)
+    return from_model(y, mesh).to(x.dtype)

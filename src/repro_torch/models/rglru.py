@@ -14,7 +14,8 @@ Under a mesh the recurrence width Dr is split over `model`
 (`rglru_axes`): each rank runs the conv and the scan kernels on its
 Dr/tp lanes, gathers every rank's conv output for the gate products
 (whose weights keep all Dr input rows and the rank's output columns),
-and the partial sums after `w_out` are added up over `model`.
+and the partial sums after `w_out` are added up over `model`. Decode
+carries the rank's lanes of the state (`h` and the conv's context).
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.shardings import from_model, gather_model, to_model
+from repro_torch.models.shardings import (from_model, gather_model,
+                                          local_extent, to_model)
 
 _C = 8.0
 
@@ -109,7 +111,7 @@ def rglru_scan(a, x, h0: Optional[torch.Tensor] = None):
 def apply_rglru(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None,
                 mesh=None) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: (B,S,D) -> (B,S,D). state (decode): {"h": (B,Dr), "conv": ...}.
-    Under `mesh`, p holds the rank's blocks (training only)."""
+    Under `mesh`, p and the state hold the rank's lanes."""
     x = to_model(x, mesh)
     xr = x @ p["w_in_x"]
     gate = x @ p["w_in_g"]
@@ -128,8 +130,9 @@ def apply_rglru(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None,
 
 
 def init_rglru_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
-                     device="cpu") -> dict:
-    dr = cfg.rnn_state_dim or cfg.d_model
+                     device="cpu", mesh=None) -> dict:
+    """The zero state; under `mesh` the rank's Dr / tp lanes."""
+    dr = local_extent(cfg.rnn_state_dim or cfg.d_model, "d_ff", mesh)
     return {
         "h": torch.zeros((batch, dr), dtype=dtype, device=device),
         "conv": torch.zeros((batch, cfg.conv_width - 1, dr), dtype=dtype,

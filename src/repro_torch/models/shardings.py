@@ -90,6 +90,17 @@ def axis_size(mesh, logical_name: str) -> int:
     return n
 
 
+def local_extent(n: int, logical_name: str, mesh) -> int:
+    """This rank's share of n along a logical axis: n over the extent it
+    maps to (n without a mesh); raises ValueError where it does not
+    divide."""
+    k = axis_size(mesh, logical_name)
+    if n % k:
+        raise ValueError(f"{n} {logical_name} do not split over {k} "
+                         f"ranks")
+    return n // k
+
+
 def entry_axes(entry) -> Tuple[str, ...]:
     """The mesh axes of one entry (None, a name, or a tuple of names)."""
     if entry is None:

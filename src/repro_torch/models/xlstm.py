@@ -22,6 +22,11 @@ their partial sums are added over `model` (the gate biases after the
 sum) and each rank keeps its heads: a rank runs the cell on its heads,
 whose lanes are its block, which needs the head count to split over
 `model`. The sLSTM's recurrence runs whole on every rank.
+
+Decoding under a mesh carries the mLSTM's state in the layout its cell
+runs: C, n and m the rank's heads and the conv's context its lanes (the
+reference splits C's and n's value lanes); the sLSTM's state is whole
+on every rank.
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG, mlstm_chunks
 from repro_torch.models.shardings import (axis_index, axis_size,
                                           from_model, gather_model,
-                                          split_model, to_model)
+                                          local_extent, split_model,
+                                          to_model)
 
 
 def _silu(x):
@@ -153,10 +159,13 @@ def _groupnorm(x, groups: int, eps: float = 1e-6):
     return ((xf - mu) * torch.rsqrt(var + eps)).reshape(B, S, D).to(x.dtype)
 
 
-def init_mlstm_state(cfg: ArchConfig, batch: int, device="cpu") -> dict:
-    H = cfg.num_heads
-    inner = 2 * cfg.d_model
-    dh = inner // H
+def init_mlstm_state(cfg: ArchConfig, batch: int, device="cpu",
+                     mesh=None) -> dict:
+    """The zero state; under `mesh` the rank's heads of C, n and m and its
+    lanes of the conv's context."""
+    dh = 2 * cfg.d_model // cfg.num_heads
+    H = local_extent(cfg.num_heads, "heads", mesh)
+    inner = local_extent(2 * cfg.d_model, "d_ff", mesh)
     f32 = dict(dtype=torch.float32, device=device)
     return {"C": torch.zeros((batch, H, dh, dh), **f32),
             "n": torch.zeros((batch, H, dh), **f32),
@@ -171,8 +180,8 @@ def apply_mlstm(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None,
     (training, prefill) the cell runs the kernels from the zero state
     and the new state is None; with a decode state {"C", "n", "m",
     "conv"} it runs `mlstm_chunkwise` from it and returns the next.
-    Under `mesh` (training), p holds the rank's lanes and the cell runs
-    the rank's heads (see the module's docstring)."""
+    Under `mesh`, p holds the rank's lanes, the cell runs the rank's
+    heads and the state holds them (see the module's docstring)."""
     B, S, D = x.shape
     tp = axis_size(mesh, "d_ff")
     H = cfg.num_heads // tp
@@ -273,9 +282,9 @@ def apply_slstm(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None,
     """x: (B, S, D) -> (y (B, S, D), new state): from the zero state
     with state None (training, prefill; the new state is None), else
     from the decode state {"h", "c", "n", "m"}, each (B, H, Dh) f32,
-    returning the state after step S. Under `mesh` (training) the
-    recurrence runs whole and the feed-forward on the rank's `d_ff`
-    block.
+    returning the state after step S. Under `mesh` the recurrence runs
+    whole (the state whole on every rank) and the feed-forward on the
+    rank's `d_ff` block.
 
     The carry is kept head-major, (H, B, Dh), so that each step's
     recurrent product is one batched matmul over heads fused with the

@@ -14,7 +14,10 @@ state as `state_shardings` splits it: the parameters split over
 `fsdp`), m, v and master further split over the data axes (ZeRO-1,
 `optimizer.zero1_pspec`). Each rank takes its rows of the global batch;
 the gradients are summed over the data axes and the loss is the mean
-over the global batch.
+over the global batch. The prefill and serve steps take the global
+batch too and give the rank's rows of the logits, its vocab block; the
+serve step decodes against the rank's block of the cache
+(`cache_shardings`).
 """
 from __future__ import annotations
 
@@ -50,12 +53,6 @@ class RunCfg:
 
 def default_run_cfg() -> RunCfg:
     return RunCfg(grad_accum=int(os.environ.get("REPRO_GRAD_ACCUM", "1")))
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("prefill and decoding under a mesh are "
-                                  "not ported (ROADMAP Queue 1 item 11)")
 
 
 # ------------------------------------------------------------ shardings
@@ -110,6 +107,21 @@ def batch_specs(cfg: ArchConfig, shape: ShapeCfg) -> dict:
         spec["frames"] = ShapeDtype((b, cfg.encoder_seq, cfg.d_model),
                                     torch.bfloat16)
     return spec
+
+
+def cache_specs(cfg: ArchConfig, shape: ShapeCfg, mesh=None,
+                dtype=torch.bfloat16):
+    """Shapes and dtypes of the whole decode cache (`shape`'s global
+    batch, seq_len slots) in the mesh's tp layout."""
+    return shape_dtype(backbone.init_cache(cfg, shape.global_batch,
+                                           shape.seq_len, tp=_tp(mesh),
+                                           dtype=dtype, device="meta"))
+
+
+def cache_shardings(cfg: ArchConfig, mesh):
+    """How the decode cache splits over `mesh` (mirrors init_cache): the
+    reference's, but for the mLSTM's state (`blocks.block_cache_axes`)."""
+    return shardings_from_axes(backbone.stack_cache_axes(cfg), mesh)
 
 
 def state_shardings(cfg: ArchConfig, mesh) -> dict:
@@ -170,6 +182,24 @@ def _device(device, who: str) -> torch.device:
     return dev
 
 
+def _layout(cfg: ArchConfig, mesh, tp: Optional[int]) -> int:
+    """The tp of a step builder: the mesh's model extent (a `tp` other
+    than it raises), or `tp` with no mesh (default 1)."""
+    if mesh is not None and tp not in (None, _tp(mesh)):
+        raise ValueError(f"tp {tp} is not the mesh's model extent")
+    tp = _tp(mesh) if tp is None else tp
+    backbone.check_mesh(cfg, tp, mesh)
+    return tp
+
+
+def _rows(batch: dict, mesh) -> dict:
+    """The rank's rows of every tensor of a batch of the global batch."""
+    if mesh is None:
+        return batch
+    return {k: shard(v, ("batch",) + (None,) * (v.dim() - 1), mesh)
+            for k, v in batch.items()}
+
+
 def _forward_kwargs(cfg: ArchConfig, batch: dict) -> dict:
     """The frontend's stub embeddings, as forward takes them."""
     key = {"vision_patches": "patches",
@@ -200,10 +230,7 @@ def make_train_step(cfg: ArchConfig, run: RunCfg, mesh=None, *,
     mesh)`), the step trains on the rank's rows of each micro-batch, and
     the stats are the global batch's. Without one, `tp` picks the
     physical layout (padded heads and vocab; default 1)."""
-    if mesh is not None and tp not in (None, _tp(mesh)):
-        raise ValueError(f"tp {tp} is not the mesh's model extent")
-    tp = _tp(mesh) if tp is None else tp
-    backbone.check_mesh(cfg, tp, mesh)
+    tp = _layout(cfg, mesh, tp)
     dev = _device(device, "make_train_step")
     if mesh is not None:
         sh = state_shardings(cfg, mesh)
@@ -229,13 +256,6 @@ def make_train_step(cfg: ArchConfig, run: RunCfg, mesh=None, *,
             grads = list(torch.autograd.grad(total, leaves))
         return total.detach(), loss.detach(), grads
 
-    def rows(mb):
-        """The rank's rows of a micro-batch of the global batch."""
-        if mesh is None:
-            return mb
-        return {k: shard(v, ("batch",) + (None,) * (v.dim() - 1), mesh)
-                for k, v in mb.items()}
-
     def train_step(state, batch):
         check_rows(batch["tokens"].shape[0], run.grad_accum, mesh)
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
@@ -246,7 +266,8 @@ def make_train_step(cfg: ArchConfig, run: RunCfg, mesh=None, *,
                       for l, s in zip(leaves, psh)]
         n = run.grad_accum
         if n <= 1:
-            total, loss, grads = value_and_grad(leaves, tdef, rows(batch))
+            total, loss, grads = value_and_grad(leaves, tdef,
+                                                _rows(batch, mesh))
         else:
             grads = [torch.zeros(l.shape, dtype=torch.float32, device=dev)
                      for l in leaves]
@@ -256,7 +277,7 @@ def make_train_step(cfg: ArchConfig, run: RunCfg, mesh=None, *,
             for i in range(n):
                 mb = {k: v[i * (b // n):(i + 1) * (b // n)]
                       for k, v in batch.items()}
-                t, l_, g = value_and_grad(leaves, tdef, rows(mb))
+                t, l_, g = value_and_grad(leaves, tdef, _rows(mb, mesh))
                 for acc, gi in zip(grads, g):
                     acc.add_(gi.float())
                 loss, total = loss + l_, total + t
@@ -316,17 +337,24 @@ def state_to(state, device) -> dict:
 
 # ------------------------------------------------------------ prefill
 def make_prefill_step(cfg: ArchConfig, run: RunCfg, mesh=None, *,
-                      device=None):
+                      device=None, tp: Optional[int] = None):
     """prefill_step(params, batch) -> logits (B, S, V) f32, without
-    gradients, on `device` (the card unless the caller passes another)."""
-    _no_mesh(mesh)
+    gradients, on `device` (the card unless the caller passes another).
+
+    Under `mesh`, params hold the rank's blocks, `batch` is the global
+    batch (it must split evenly over the data ranks), the forward runs
+    the rank's rows, and the logits are the rank's rows and its vocab
+    block. Without one, `tp` picks the physical layout (default 1)."""
+    tp = _layout(cfg, mesh, tp)
     dev = _device(device, "make_prefill_step")
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        check_rows(batch["tokens"].shape[0], 1, mesh)
+        batch = _rows({k: torch.as_tensor(v).to(dev)
+                       for k, v in batch.items()}, mesh)
         logits, _ = backbone.forward(params, batch["tokens"].long(), cfg,
-                                     remat=run.remat,
+                                     tp, mesh, remat=run.remat,
                                      **_forward_kwargs(cfg, batch))
         return logits
 
@@ -334,20 +362,29 @@ def make_prefill_step(cfg: ArchConfig, run: RunCfg, mesh=None, *,
 
 
 # ------------------------------------------------------------ serve step
-def make_serve_step(cfg: ArchConfig, mesh=None, *, device=None):
+def make_serve_step(cfg: ArchConfig, mesh=None, *, device=None,
+                    tp: Optional[int] = None):
     """serve_step(params, cache, tokens) -> (logits (B, 1, V) f32, cache):
     one decode step against the cache (`backbone.decode_step`) without
     gradients, on `device` (the card unless the caller passes another).
     The cache (from `backbone.init_cache`, and for an encoder-decoder
     model filled by `backbone.setup_cross_cache`) is updated in place and
     returned; tokens (B, 1) are moved to the device (no copy when they
-    are there already, so a step on the card never waits for the host)."""
-    _no_mesh(mesh)
+    are there already, so a step on the card never waits for the host).
+
+    Under `mesh`, params and the cache hold the rank's blocks (the cache
+    from `init_cache(..., mesh=mesh)`), tokens are the global batch's
+    (B, 1), of which the step decodes the rank's rows, and the logits
+    are the rank's rows and its vocab block. Without one, `tp` picks the
+    physical layout (default 1)."""
+    tp = _layout(cfg, mesh, tp)
     dev = _device(device, "make_serve_step")
 
     @torch.no_grad()
     def serve_step(params, cache, tokens):
-        tokens = torch.as_tensor(tokens).to(dev).long()
-        return backbone.decode_step(params, cache, tokens, cfg)
+        check_rows(tokens.shape[0], 1, mesh)
+        tokens = _rows({"tokens": torch.as_tensor(tokens).to(dev).long()},
+                       mesh)["tokens"]
+        return backbone.decode_step(params, cache, tokens, cfg, tp, mesh)
 
     return serve_step

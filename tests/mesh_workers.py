@@ -2,12 +2,13 @@
 process per rank (it holds no tests and imports no JAX, so each rank
 starts with torch alone).
 
-`parity` runs the (case, mesh) runs that a test lists in
-`<tmp>/inputs.pkl` beside the cases' weights and batches (written while
-the ranks start), one gloo world over a FileStore per mesh size. The
-`launcher` ranks (f32 parameters) check what a mesh refuses (prefill,
-serving and decoding; MLA at a tp that does not divide its heads) and
-that every architecture's train step builds under one, the launcher's resume
+`parity` (training) and `serve` (serving) run the (case, mesh) runs
+that a test lists in `<tmp>/inputs.pkl` beside the cases' weights and
+batches (written while the ranks start), one gloo world over a
+FileStore per mesh size. The `launcher` ranks (f32 parameters) check
+what a mesh refuses (MLA at a tp that does not divide its heads, a
+batch the data ranks do not divide) and that every architecture's train
+step builds under one, the launcher's resume
 from a (2, 1) checkpoint onto (1, 2), FSDP (REPRO_FSDP=1) at (2, 1),
 the loss over split rows and a split vocabulary, and that a mesh of one
 shape is made once per process group. Each rank pickles what it found
@@ -20,15 +21,17 @@ import os
 import pickle
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.configs.base import ShapeCfg
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import train as launch
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import backbone, registry
-from repro_torch.models.shardings import (resolve, shard, sum_over_batch,
-                                          whole)
+from repro_torch.models.shardings import (resolve, shard, shard_tree,
+                                          sum_over_batch, whole)
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import step
 from repro_torch.tree import tree_leaves
@@ -37,11 +40,12 @@ ADAM = dict(lr=1e-3, warmup_steps=2)
 
 
 def config(cfg, cuts=None):
-    """`cfg` (the JAX package's or the port's) with the fields of its
-    sub-configs that `cuts` names replaced, e.g. {"moe": {"num_experts":
-    7}}."""
-    return cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
-                          for k, v in (cuts or {}).items()})
+    """`cfg` (the JAX package's or the port's) with the fields that `cuts`
+    names replaced: by a value, or a sub-config's fields by a dict, e.g.
+    {"vocab_size": 255, "moe": {"num_experts": 7}}."""
+    return cfg.replace(**{
+        k: dataclasses.replace(getattr(cfg, k), **v)
+        if isinstance(v, dict) else v for k, v in (cuts or {}).items()})
 
 
 def _case(inputs: dict, name: str, mesh) -> dict:
@@ -86,11 +90,10 @@ def _case(inputs: dict, name: str, mesh) -> dict:
 
 
 def _refusals(world: int) -> dict:
-    """What a mesh refuses: a size other than the world's, prefill,
-    serving and decoding (NotImplementedError), MLA at a tp that does
-    not divide its heads and a batch that the data ranks do not divide
-    (ValueError); and under "trains" the architectures whose train step
-    builds under a mesh."""
+    """What a mesh refuses: a size other than the world's, MLA at a tp
+    that does not divide its heads, a batch that the data ranks do not
+    divide, in training and in `init_cache` (ValueError); and under
+    "trains" the architectures whose train step builds under a mesh."""
     out = {}
     try:
         launch.main(LAUNCHER + ["--mesh", f"{world}x1", "--steps", "1",
@@ -103,24 +106,15 @@ def _refusals(world: int) -> dict:
         out["size"] = None
     except ValueError as e:
         out["size"] = str(e)
+    try:
+        backbone.init_cache(registry.reduced_config("stablelm-1.6b"),
+                            world + 1, 8, device="cpu",
+                            mesh=make_production_mesh(f"{world}x1", "cpu"))
+        out["cache_batch"] = None
+    except ValueError as e:
+        out["cache_batch"] = str(e)
     mesh = make_production_mesh(f"1x{world}", "cpu")
     run = step.RunCfg()
-    cfg = registry.reduced_config("whisper-medium")
-    calls = {
-        "make_prefill_step": lambda: step.make_prefill_step(
-            cfg, run, mesh, device="cpu"),
-        "make_serve_step": lambda: step.make_serve_step(cfg, mesh,
-                                                        device="cpu"),
-        "decode_step": lambda: backbone.decode_step(None, None, None, cfg,
-                                                    mesh=mesh),
-        "setup_cross_cache": lambda: backbone.setup_cross_cache(
-            None, None, None, cfg, mesh=mesh)}
-    for name, call in calls.items():
-        try:
-            call()
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
     mla = registry.reduced_config("deepseek-v2-lite-16b").replace(
         num_heads=world + 1)
     try:
@@ -240,7 +234,68 @@ def parity(rank: int, tmp: str) -> None:
     `<tmp>/inputs.pkl` lists as (case, mesh), world by world from the
     largest, each world on as many of the spawned ranks as it needs."""
     torch.set_num_threads(1)
-    inputs = _inputs(tmp)
+    _runs(_inputs(tmp), rank, tmp, _case)
+
+
+def _gather(tree, shardings) -> list:
+    """Every leaf of a tree of the rank's blocks, whole, as numpy copies
+    (bf16 leaves as f32): a leaf that no mesh axis splits is the rank's
+    own tensor, which the next step updates in place."""
+    out = []
+    for t, sh in zip(tree_leaves(tree), tree_leaves(shardings)):
+        w = sh.whole(t)
+        out.append(np.array(w.float() if w.is_floating_point() else w))
+    return out
+
+
+def _serve_case(inputs: dict, name: str, mesh) -> dict:
+    """One model served on one mesh from the reference's weights: whether
+    the rank's cache is its block of `cache_specs` as `cache_shardings`
+    splits it; with frames, the cache after `setup_cross_cache`; the
+    whole logits and cache after each token of `make_serve_step` (the
+    global batch's tokens); and `make_prefill_step`'s whole logits."""
+    case = inputs[name]
+    cfg = config(registry.reduced_config(case["arch"]), case.get("cuts"))
+    tp = mesh.shape[-1]
+    params = shard_tree(params_from_numpy(case["params"], "cpu"),
+                        backbone.param_axes(cfg), mesh)
+    dtype = getattr(torch, case["cache_dtype"])
+    toks = case["tokens"]
+    b, n = toks.shape
+    cache = backbone.init_cache(cfg, b, case["max_len"], tp, dtype,
+                                device="cpu", mesh=mesh)
+    sh = step.cache_shardings(cfg, mesh)
+    specs = step.cache_specs(cfg, ShapeCfg(name, "decode", case["max_len"],
+                                           b), mesh, dtype)
+    out = {"blocks": [(tuple(t.shape), t.dtype) for t in tree_leaves(cache)]
+           == [(s.local_shape(p.shape), p.dtype) for s, p in
+               zip(tree_leaves(sh), tree_leaves(specs))],
+           "local": sum(t.numel() for t in tree_leaves(cache)),
+           "whole": sum(math.prod(p.shape) for p in tree_leaves(specs))}
+    if "frames" in case:
+        frames = shard(torch.from_numpy(case["frames"]), ("batch", None,
+                                                          None), mesh)
+        backbone.setup_cross_cache(params, cache, frames, cfg, tp, mesh)
+        out["cross"] = _gather(cache, sh)
+    serve = step.make_serve_step(cfg, mesh, device="cpu")
+    vocab = resolve(("batch", None, "vocab"), mesh)
+    logits, caches = [], []
+    for t in range(n):
+        lg, cache = serve(params, cache, toks[:, t:t + 1])
+        logits.append(whole(lg, vocab, mesh).numpy())
+        caches.append(_gather(cache, sh))
+    batch = {k: case[k] for k in ("tokens", "frames") if k in case}
+    prefill = step.make_prefill_step(cfg, step.RunCfg(
+        param_dtype=torch.float32), mesh, device="cpu")(params, batch)
+    out.update(logits=np.concatenate(logits, 1), caches=caches,
+               prefill=whole(prefill, vocab, mesh).numpy())
+    return out
+
+
+def _runs(inputs: dict, rank: int, tmp: str, case_fn) -> None:
+    """The runs that `inputs` lists as (case, mesh), world by world from
+    the largest, each world on as many of the spawned ranks as it
+    needs: `case_fn(inputs, case, mesh)` for each."""
     worlds = {}
     for name, mesh in inputs["runs"]:
         worlds.setdefault(math.prod(map(int, mesh.split("x"))), []).append(
@@ -248,9 +303,16 @@ def parity(rank: int, tmp: str) -> None:
     for world in sorted(worlds, reverse=True):
         if rank < world:
             _world(tmp, rank, world, lambda w: {
-                f"{name} {mesh}": _case(inputs, name,
-                                        make_production_mesh(mesh, "cpu"))
+                f"{name} {mesh}": case_fn(inputs, name,
+                                          make_production_mesh(mesh, "cpu"))
                 for name, mesh in worlds[w]})
+
+
+def serve(rank: int, tmp: str) -> None:
+    """One rank of tests/test_torch_mesh_serve*.py: `_serve_case` for
+    each run that `<tmp>/inputs.pkl` lists."""
+    torch.set_num_threads(1)
+    _runs(_inputs(tmp), rank, tmp, _serve_case)
 
 
 def _meshes() -> dict:

@@ -165,27 +165,30 @@ def test_attn_cross_still_raises(call):
 def test_make_serve_step_matches_decode_step():
     """make_serve_step on the CPU is decode_step without gradients: the
     same logits and caches bit for bit, from numpy tokens, and no graph
-    even when the weights require gradients. A mesh is refused."""
+    even when the weights require gradients; in the tp-1 layout, and
+    with `tp` 2 in tp 2's (7 q heads padded to 8 on 2 kv slots, the
+    vocab padded to 256)."""
     cfg = registry.reduced_config("yi-34b")
-    gen = torch.Generator().manual_seed(0)
-    params = backbone.init_params(cfg, gen, dtype=torch.float32)
-    for leaf in tree_leaves(params):
-        leaf.requires_grad_(True)
-    serve = step.make_serve_step(cfg, device="cpu")
-    caches = [backbone.init_cache(cfg, B, 6, dtype=torch.float32,
-                                  device="cpu") for _ in "ab"]
-    for t in range(4):
-        tok = tokens(t, B, 1)
-        got, caches[0] = serve(params, caches[0], tok)
-        with torch.no_grad():
-            want, caches[1] = backbone.decode_step(
-                params, caches[1], torch.from_numpy(tok).long(), cfg)
-        assert not got.requires_grad and torch.equal(got, want)
-        assert all(torch.equal(a, b) for a, b in
-                   zip(tree_leaves(caches[0]), tree_leaves(caches[1])))
-    assert int(caches[0]["scan"][0]["pos"][0]) == 4
-    with pytest.raises(NotImplementedError, match="item 11"):
-        step.make_serve_step(cfg, mesh=object(), device="cpu")
+    for tp in (1, 2):
+        gen = torch.Generator().manual_seed(0)
+        params = backbone.init_params(cfg, gen, tp=tp, dtype=torch.float32)
+        for leaf in tree_leaves(params):
+            leaf.requires_grad_(True)
+        serve = step.make_serve_step(cfg, device="cpu", tp=tp)
+        caches = [backbone.init_cache(cfg, B, 6, tp=tp, dtype=torch.float32,
+                                      device="cpu") for _ in "ab"]
+        assert caches[0]["scan"][0]["k"].shape[3] == tp
+        for t in range(4):
+            tok = tokens(t, B, 1)
+            got, caches[0] = serve(params, caches[0], tok)
+            with torch.no_grad():
+                want, caches[1] = backbone.decode_step(
+                    params, caches[1], torch.from_numpy(tok).long(), cfg,
+                    tp)
+            assert not got.requires_grad and torch.equal(got, want)
+            assert all(torch.equal(a, b) for a, b in
+                       zip(tree_leaves(caches[0]), tree_leaves(caches[1])))
+        assert int(caches[0]["scan"][0]["pos"][0]) == 4
 
 
 def test_cache_tree_and_convert_match_jax():

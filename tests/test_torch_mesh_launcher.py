@@ -3,9 +3,9 @@ run at --mesh 2x1 checkpointed and resumed at --mesh 1x2 (another
 shape, the same tp-1 layout: reduced StableLM's heads and vocab divide)
 against an unbroken run with no mesh; FSDP at 2x1 against ZeRO-1;
 the loss over split rows (masks of unequal counts) and a split
-vocabulary; what a mesh refuses (prefill, serving and decoding, MLA at
-a tp that does not divide its heads, a batch the data ranks do not
-divide among it) and that every block type's train step builds under
+vocabulary; what a mesh refuses (MLA at a tp that does not divide its
+heads, a batch the data ranks do not divide among them, in training and
+in init_cache) and that every block type's train step builds under
 one; that a mesh of one shape is made once per process group; and
 --mesh on the card without CUDA. The two ranks run
 `mesh_workers.launcher` with f32 parameters, spawned once for the
@@ -68,21 +68,19 @@ def test_loss_is_the_global_mean_over_split_rows_and_vocab(ranks):
 
 
 def test_mesh_refusals(ranks):
-    """A mesh of another size than the world's raises; so do prefill,
-    serving and decoding under a mesh, naming the roadmap's item, and
-    MLA at a tp that does not divide its heads. Every block type's
-    train step builds under a mesh."""
+    """A mesh of another size than the world's raises, and so does MLA
+    at a tp that does not divide its heads, and init_cache for a global
+    batch that the data ranks do not divide. Every block type's train
+    step builds under a mesh."""
     for rank in range(2):
         out = dict(ranks[2, rank]["refusals"])
         out.pop("batch")
         assert "devices, the world" in out.pop("size")
         assert out.pop("trains") == list(mesh_workers.TRAINS)
         assert "3 heads do not split over tp 2" in out.pop("mla")
-        assert set(out) == {"make_prefill_step", "make_serve_step",
-                            "decode_step", "setup_cross_cache"}
-        for call, msg in out.items():
-            assert "under a mesh" in msg and "not ported" in msg, call
-            assert "ROADMAP Queue 1 item 11" in msg, call
+        assert "a global batch of 3 does not split over 2 data rank" in \
+            out.pop("cache_batch")
+        assert not out
 
 
 def test_mesh_refuses_a_batch_the_data_ranks_do_not_divide(ranks):
