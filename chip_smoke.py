@@ -192,7 +192,22 @@ Phases (each failure exits non-zero):
      equal, the two runs bitwise, the launches the config's count, and
      the logits within SERVE_MESH_TOL of one process on one card in the
      same tp layout. `python3 chip_smoke.py --only serve-mesh` builds
-     the kernels and runs this phase alone.
+     the kernels and runs this phase alone;
+ 15. dry-run (run last, after phase 11; `launch/dryrun.py`, the step
+     run once on `meta` tensors as rank 0 of a fake process group, no
+     kernel launched): the card's total_memory, which the dry-run's
+     budget H100_HBM_BYTES must not exceed; `run_cell` for
+     qwen2-moe-a2.7b train_4k on 16x16 and yi-34b decode_32k on
+     2x16x16, each `ok`; the dry-run's predicted peak for phase 6's
+     launcher run (RecurrentGemma-2B, batch 1, seq 4096, RunCfg's
+     defaults, no mesh) and for phase 11's StableLM-2-1.6B decode (batch
+     8, 2048 slots, f32 weights and cache), each within DRYRUN_PEAK_TOL
+     of the max_memory_allocated those phases measured (phase 11's up to
+     the end of its first decode run); phase 6's
+     predicted FLOPs over its fastest measured step no more than the
+     card's bf16 peak rate (PEAK_FLOPS); on N > 1 cards, phase 14's
+     Yi-34B f32 on 1xN beside its prediction (printed, not gated). Under
+     60 s.
 Each engine slice runs setup, record_iteration and 3 x train_iteration
 twice with the same seed; the launcher slices run the launcher twice.
 Losses must be bitwise equal across the two runs, and the GPT, MoE and
@@ -426,6 +441,14 @@ SERVE_MESH_TOL = 1e-4
 # (34 GB) and 2 of its 8 kv heads: 8 x 2048 x 60 x 2 x 2 x 128 x 4 B =
 # 2.0 GB of f32 cache (computed from the config)
 YI_SERVE = (8, 32, 2048)
+# phase 15: a dry-run's predicted peak (the tracked live bytes of the
+# step run on `meta`, allocator-rounded, plus cuBLAS's workspace) against
+# the max_memory_allocated a phase measured: |predicted / measured - 1|
+DRYRUN_PEAK_TOL = 0.10
+# what the phases measured, for phase 15: by path, the peak (B) and the
+# step times (s) of a launcher run, and the peak (B) up to the end of a
+# serve run's first decode
+MEASURED: dict = {}
 # phase 9: the campaign at GPT-medium with phase 4's engine arguments,
 # and the scenarios it drives after the reference run
 CAMPAIGN_CFG = dict(arch="gpt-medium", dp=2, pp=2, global_batch=8,
@@ -523,42 +546,6 @@ def time_pair_ms(fa, fb, reps: int):
             b.synchronize()
             out.append(a.elapsed_time(b))
     return statistics.median(times[0]), statistics.median(times[1])
-
-
-def visible_pairs(s, causal, window):
-    """(q, k) pairs the mask keeps: k <= q when causal, q - k < window
-    when window > 0."""
-    q = torch.arange(s)
-    lo = (q - window + 1).clamp(min=0) if window else torch.zeros_like(q)
-    hi = q + 1 if causal else torch.full_like(q, s)
-    return int((hi - lo).clamp(min=0).sum())
-
-
-def attention_work(name, bh, s, d, dtype, causal, window, dv=None):
-    """(FLOPs, bytes) the function needs at this shape, q and k (and
-    their gradients) `d` wide, v, o and dO (and dv) `dv` wide (d where
-    None): only the unmasked (q, k) pairs count; each input read once,
-    each output written once."""
-    dv = dv or d
-    pairs = bh * visible_pairs(s, causal, window)
-    el = torch.tensor([], dtype=dtype).element_size()
-    tk, tv = bh * s * d * el, bh * s * dv * el   # one (BH, S, .) tensor
-    row = bh * s * 4                 # one f32 value a row: lse, delta
-    if name == "flash_fwd":          # QK^T, PV; reads q,k,v; writes o,lse
-        return 2 * (d + dv) * pairs, 2 * tk + tv + tv + row
-    if name == "flash_bwd_dkdv":     # S, dP, dV, dK; reads q,k,v,dO,lse,D
-        return 4 * (d + dv) * pairs, 2 * tk + 2 * tv + 2 * row + tk + tv
-    # dq: D = rowsum(dO O), S, dP, dQ; reads q,k,v,o,dO,lse; writes dq,D
-    return ((4 * d + 2 * dv) * pairs + 2 * bh * s * dv,
-            2 * tk + 3 * tv + row + tk + row)
-
-
-def gmm_work(e, m, k, n, dtype):
-    """(FLOPs, bytes) of one grouped product at this shape, the same for
-    all three kernels: 2*E*M*K*N FLOPs; two of x (E,M,K), w (E,K,N) and
-    dy (E,M,N) read once, the third written once."""
-    el = torch.tensor([], dtype=dtype).element_size()
-    return 2 * e * m * k * n, (e * m * k + e * k * n + e * m * n) * el
 
 
 def bound(flops, nbytes, dtype):
@@ -755,6 +742,7 @@ def time_attention(fa, results, shape, q, k, v, do, o, lse, sc, gate=True):
     at = (f"d={shape['d']}" + (f" dv={shape['dv']}" if "dv" in shape else "")
           + ("" if causal else f" s={shape['s']} {str(shape['dtype'])[6:]} "
              "non-causal"))
+    from repro_torch.kernels.work import attention_work
     for n in FLASH:
         results[n]["bound_ms"], results[n]["bound_by"] = bound(
             *attention_work(n, **shape), shape["dtype"])
@@ -948,6 +936,7 @@ def time_gmm(gm, results, shape, x, w, dy, gate=True):
         "gmm_bwd_dw": (lambda: gm.gmm_bwd_dw(x, dy),
                        lambda: gm.gmm_bwd_dw_ref(x, dy),
                        lambda: torch.bmm(x.transpose(1, 2), dy))}
+    from repro_torch.kernels.work import gmm_work
     work = gmm_work(**shape)
     for name, (kern, plain, lib) in calls.items():
         r = results[name]
@@ -964,17 +953,6 @@ def time_gmm(gm, results, shape, x, w, dy, gate=True):
     slow = [n for n in GMM if results[n]["ms"] >= results[n]["library_ms"]]
     if slow and gate:
         raise SystemExit(f"{slow} not faster than torch.bmm at {shape}")
-
-
-def scan_work(name, b, s, d, a_dtype, x_dtype):
-    """(FLOPs, bytes) of one scan at this shape: forward reads a and x
-    and writes h (a multiply and an add a step); backward reads a, h and
-    g and writes da and dx (three operations a step)."""
-    n = b * s * d
-    el = lambda dt: torch.tensor([], dtype=dt).element_size()
-    if name == "rglru_fwd":
-        return 2 * n, n * (el(a_dtype) + 2 * el(x_dtype))
-    return 3 * n, n * (2 * el(a_dtype) + 3 * el(x_dtype))
 
 
 # the chunk edges check_rglru adds, at the chunk length L the wrapper
@@ -1106,6 +1084,7 @@ def time_rglru(rg, results, shape, a, x, h, g):
         r["plain_ms"] = time_ms(plain, 3)
         # no single PyTorch call computes a linear recurrence
         r["library_ms"] = None
+        from repro_torch.kernels.work import scan_work
         work = scan_work(name, **shape)
         r["bound_ms"], r["bound_by"] = bound(*work, shape["a_dtype"])
         first = RGLRU_FIRST_MS[name]
@@ -1116,33 +1095,6 @@ def time_rglru(rg, results, shape, a, x, h, g):
               f"library none, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}); {work[1] / r['ms'] / 1e9:.2f} TB/s",
               flush=True)
-
-
-def mlstm_work(name, bh, s, k, chunk, dtype):
-    """(FLOPs, bytes) one mLSTM kernel needs at this shape, per (head,
-    chunk) summed: products over the causal pairs s <= t only; each
-    input read once, each output written once (the forward's outputs
-    include the per-chunk states and each row's m_loc and den)."""
-    nc, L = s // chunk, chunk
-    pairs = L * (L + 1) // 2
-    el = torch.tensor([], dtype=dtype).element_size()
-    row = bh * s * k                       # elements of one (BH, S, K)
-    gates = bh * s * 4                     # one (BH, S) f32 array
-    states = bh * nc * (k * k + k + 1) * 4
-    if name == "mlstm_fwd":    # q C, C update; q k^T, (D * qk) v; q.n, n
-        flops = bh * nc * (4 * L * k * k + 4 * k * pairs + 4 * L * k)
-        return flops, 4 * row * el + 2 * gates + states + 2 * gates
-    if name == "mlstm_bwd_dqdk":
-        # C dnum, dC v, dC update; v dnum^T, dP k, dP^T q; dh.h, n, dn
-        flops = bh * nc * (6 * L * k * k + 6 * k * pairs + 6 * L * k)
-        return flops, (5 * row * el + 4 * gates + states
-                       + 2 * row * 4)
-    # dv: k dC; q k^T, P'^T dh; q.dq, k.dk. Reads q, k, dh, dq, dk, the
-    # dC workspace once, log_i, m_loc and the workspace's F, w and
-    # denominator; writes dv, dlog_i, dlog_f
-    flops = bh * nc * (2 * L * k * k + 4 * k * pairs + 4 * L * k)
-    return flops, (3 * row * el + 2 * row * 4 + bh * nc * k * k * 4
-                   + 5 * gates + row * 4 + 2 * gates)
 
 
 def mlstm_inputs(gen, bh, s, k, dtype):
@@ -1289,6 +1241,7 @@ def time_mlstm(ml, results, shape, ins, h, dh, aux):
         r["plain_ms"] = plain_fwd if name == "mlstm_fwd" else plain_bwd
         # no single PyTorch call computes a chunkwise mLSTM
         r["library_ms"] = None
+        from repro_torch.kernels.work import mlstm_work
         work = mlstm_work(name, **shape)
         r["bound_ms"], r["bound_by"] = bound(*work, shape["dtype"])
         first = MLSTM_FIRST_MS[name]
@@ -1959,6 +1912,8 @@ def drive_launcher(mods, cfg, argv, label, busy_groups=(), busy_kernels=()):
     print(f"[slice] {cfg.name}, {cfg.num_layers} layers, {label}",
           flush=True)
     hist, launches, _ = run_launcher(mods, argv, count=True)
+    MEASURED[cfg.name] = {"peak": torch.cuda.max_memory_allocated(),
+                          "step_s": [h["seconds"] for h in hist]}
     want = launcher_expected_launches(cfg, steps)
     print(f"  launches in the main path: {launches} (want {want})",
           flush=True)
@@ -2384,6 +2339,9 @@ def drive_serve(mods, cfg, card: str):
 
     dec, wall, _ = decode_run(cfg, params, tokens, max_len, f32,
                               sync_check=True, frames=frames)
+    # the first decode's peak, for phase 15: one cache (each later run
+    # makes its own while the one before is still referenced here)
+    MEASURED[f"{cfg.name} decode"] = torch.cuda.max_memory_allocated()
     report("f32 cache, no host sync (sync debug mode error)", wall)
     runs = [("slot buffers NaN-filled", dict(nan_fill=True))]
     if cfg.name == "stablelm-1.6b":
@@ -2755,6 +2713,8 @@ def serve_mesh_cards(mods, n: int, card: str) -> dict:
             failures.append(f"yi-34b rank {r}: {yi}")
     found[f"yi-34b 60 layers serve 1x{n} (rank 0)"] = \
         ranks[0]["yi"]["launches"]
+    MEASURED[f"yi-34b 1x{n} decode"] = max(r["yi"]["peak_f32"]
+                                           for r in ranks)
     for j, (i, name) in enumerate(jobs):
         arch, cuts, batch, ntok, max_len = SERVE_MESH[i]
         cfg = serve_config(arch, cuts)
@@ -2796,6 +2756,84 @@ def drive_serve_mesh(mods, card: str) -> dict:
     print(f"[serve-mesh] phase 14 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return found
+
+
+def predicted_peak(label: str, rec: dict, measured, card: str) -> bool:
+    """Print a dry-run's predicted peak beside a measured one; whether
+    it is within DRYRUN_PEAK_TOL."""
+    ratio = rec["mem_peak_bytes"] / measured
+    print(f"  {label}: predicted peak {rec['mem_peak_bytes']} B "
+          f"(arguments {rec['mem_argument']} B, beyond them "
+          f"{rec['mem_temp']} B, cuBLAS workspace), measured "
+          f"max_memory_allocated {measured} B: predicted / measured "
+          f"{ratio:.4f} (tol {DRYRUN_PEAK_TOL:g}); run on meta in "
+          f"{rec['run_s']} s [{card}]", flush=True)
+    return abs(ratio - 1) <= DRYRUN_PEAK_TOL
+
+
+def drive_dryrun(card: str) -> None:
+    """Phase 15 (see the module's docstring)."""
+    from repro_torch.configs import recurrentgemma_2b, stablelm_1_6b, yi_34b
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[dryrun] card total_memory {total} B; the dry-run's budget "
+          f"H100_HBM_BYTES {dryrun.H100_HBM_BYTES} B [{card}]", flush=True)
+    failures = []
+    if dryrun.H100_HBM_BYTES > total:
+        failures.append("the budget is above the card's memory")
+    for arch, shape, multi in (("qwen2-moe-a2.7b", "train_4k", False),
+                               ("yi-34b", "decode_32k", True)):
+        rec = dryrun.run_cell(arch, shape, multi)
+        print(f"  {arch} {shape} {rec['mesh']}: {rec['status']}"
+              + (f", {rec.get('error')}" if rec["status"] != "ok" else
+                 f" in {rec['run_s']} s: {rec['flops_per_device']:.4e} "
+                 f"FLOPs a device, {rec['mem_peak_bytes']} B peak, fits "
+                 f"{rec['fits_h100_hbm']}, collectives "
+                 f"{rec['collective_bytes_per_device']:.4e} B "
+                 f"{json.dumps(rec['per_collective'])}"), flush=True)
+        if rec["status"] != "ok":
+            failures.append(f"{arch} {shape}: {rec.get('trace')}")
+    rgc = recurrentgemma_2b.CONFIG
+    rg = dryrun.analyze_cell(rgc, ShapeCfg("launcher", "train", 4096, 1),
+                             None)
+    got = MEASURED[rgc.name]
+    if not predicted_peak(f"{rgc.name} phase 6 train step", rg, got["peak"],
+                          card):
+        failures.append(f"{rgc.name}: predicted peak off the measured")
+    step = min(got["step_s"])
+    rate = rg["flops_per_device"] / step
+    peak_rate = PEAK_FLOPS[torch.bfloat16]
+    print(f"  {rgc.name}: predicted FLOPs {rg['flops_per_device']:.6e} "
+          f"(matmuls {rg['matmul_flops_per_device']:.6e}, kernels "
+          f"{rg['kernel_flops_per_device']:.6e}) over the fastest measured "
+          f"step {step:.4f} s: {rate / 1e12:.2f} TFLOP/s, the card's bf16 "
+          f"peak {peak_rate / 1e12:.0f} TFLOP/s [{card}]", flush=True)
+    if not 0 < rate <= peak_rate:
+        failures.append(f"{rgc.name}: {rate:.4e} FLOP/s above the peak")
+    lm = stablelm_1_6b.CONFIG
+    batch, _, slots, _ = SERVE[lm.name]
+    dec = dryrun.analyze_cell(lm, ShapeCfg("serve", "decode", slots, batch),
+                              None, param_dtype=torch.float32,
+                              cache_dtype=torch.float32)
+    if not predicted_peak(f"{lm.name} phase 11 decode step", dec,
+                          MEASURED[f"{lm.name} decode"], card):
+        failures.append(f"{lm.name}: predicted decode peak off the measured")
+    n = torch.cuda.device_count()
+    if f"yi-34b 1x{n} decode" in MEASURED:
+        batch, _, slots = YI_SERVE
+        yi = dryrun.analyze_cell(yi_34b.CONFIG,
+                                 ShapeCfg("serve", "decode", slots, batch),
+                                 f"1x{n}", param_dtype=torch.float32,
+                                 cache_dtype=torch.float32)
+        predicted_peak(f"yi-34b phase 14 decode step, a rank of 1x{n} "
+                       f"(printed, not gated)", yi,
+                       MEASURED[f"yi-34b 1x{n} decode"], card)
+    print(f"[dryrun] phase 15 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if failures:
+        raise SystemExit(f"dry-run: {failures}")
 
 
 def main(argv=None) -> int:
@@ -2944,6 +2982,7 @@ def main(argv=None) -> int:
                   xlstm_350m.CONFIG, deepseek_v2_lite_16b.CONFIG, wh)}
     print(f"[serve] phase 11 in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    drive_dryrun(card)
     names = FLASH + GMM + SCAN + MLSTM
     by_path = {n: {gpt.name: launches[n],
                    f"{gpt.name} migration": mig_launches[n],

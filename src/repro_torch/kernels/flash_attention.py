@@ -7,19 +7,27 @@ The counterpart of the Pallas TPU kernel in
 forward-only; here `flash_bwd_dq` and then `flash_bwd_dkdv` carry the
 gradient. A CUDA tensor launches the kernel (or raises); only a CPU
 tensor runs the plain version, so the CPU tests exercise the same
-wiring and the same recompute-from-lse formula.
+wiring and the same recompute-from-lse formula. A `meta` tensor (the
+dry-run's) allocates what the CUDA path allocates, launches nothing and
+adds the kernel's work to `work.TALLY`.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
+from repro_torch.kernels.ref import online_softmax
 
 NEG_INF = -1e30
 # (q.k width, v width) pairs with an instance: one width for both, or
 # multi-head latent attention's 128 + 64 rotary beside its v width 128
 WIDTHS = tuple((d, d) for d in (16, 32, 64, 128, 256)) + ((192, 128),)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the plain versions take the chunked form above this sequence length,
+# in chunks of these many queries and keys (the reference's
+# `chunked_attention` defaults): no (BH, S, S) logits at long S
+CHUNKED_FROM = 2048
+Q_CHUNK, KV_CHUNK = 512, 1024
 
 # Kernel launches by name. Each wrapper adds one where it launches its
 # kernel and nowhere else; callers zero them with reset_launches().
@@ -52,7 +60,7 @@ def _check(q, k, v, *vs) -> None:
 
 
 def _device_kind(t) -> str:
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no attention kernel for device {t.device}")
     return t.device.type
 
@@ -67,13 +75,15 @@ def launch(fn: str, *args, device) -> None:
     LAUNCHES[fn] += 1
 
 
-def _mask(s_len: int, t_len: int, causal: bool, window: int, device):
-    """(S, T) bool, True where key k is visible to query q: k <= q when
-    causal, q - k < window when window > 0; None when all are."""
+def _mask(s_len: int, t_len: int, causal: bool, window: int, device,
+          q0: int = 0, k0: int = 0):
+    """(S, T) bool for queries q0.. and keys k0.., True where key k is
+    visible to query q: k <= q when causal, q - k < window when window >
+    0; None when all are."""
     if not causal and not window:
         return None
-    qi = torch.arange(s_len, device=device)[:, None]
-    ki = torch.arange(t_len, device=device)[None]
+    qi = torch.arange(q0, q0 + s_len, device=device)[:, None]
+    ki = torch.arange(k0, k0 + t_len, device=device)[None]
     ok = (ki <= qi) if causal else torch.ones_like(qi == ki)
     return ok & (qi - ki < window) if window else ok
 
@@ -84,8 +94,65 @@ def _check_window(window: int) -> None:
 
 
 # ------------------------------------------------------ plain versions
+def _block_mask(qs: slice, ks: slice, causal: bool, window: int, device):
+    """_mask's block for the query slice qs and the key slice ks."""
+    return _mask(qs.stop - qs.start, ks.stop - ks.start, causal, window,
+                 device, qs.start, ks.start)
+
+
+def _key_span(s_len: int, causal: bool, window: int):
+    """(lo, hi) of the keys any query of a slice of rows may see."""
+    def span(qs):
+        lo = max(qs.start - window + 1, 0) if window else 0
+        return lo, (qs.stop if causal else s_len)
+    return span
+
+
+def attention_fwd_chunked(q, k, v, causal: bool, scale: float, window=0):
+    """attention_fwd_ref by the online softmax over chunks of Q_CHUNK
+    queries and KV_CHUNK keys (`ref.online_softmax`), kv chunks no query
+    of a chunk sees skipped."""
+    def bias(qs, ks):
+        mask = _block_mask(qs, ks, causal, window, q.device)
+        return None if mask is None else torch.where(mask, 0.0, NEG_INF)
+    o, lse = online_softmax(q, k, v, bias, q_chunk=Q_CHUNK,
+                            kv_chunk=KV_CHUNK, scale=scale,
+                            kv_range=_key_span(k.shape[1], causal, window))
+    return o.to(q.dtype), lse
+
+
+def attention_bwd_chunked(q, k, v, o, lse, do, causal: bool, scale: float,
+                          window=0):
+    """attention_bwd_ref a chunk of Q_CHUNK queries at a time against the
+    keys it may see: P, dP and dS are (BH, Q_CHUNK, keys), never (BH, S,
+    S); dk and dv sum over the chunks in f32."""
+    s_len = q.shape[1]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (dof * o.float()).sum(-1)
+    dq = torch.empty_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    span = _key_span(s_len, causal, window)
+    for q0 in range(0, s_len, Q_CHUNK):
+        qs = slice(q0, min(q0 + Q_CHUNK, s_len))
+        ks = slice(*span(qs))
+        p = torch.exp(qf[:, qs] @ kf[:, ks].transpose(1, 2) * scale
+                      - lse[:, qs, None])
+        mask = _block_mask(qs, ks, causal, window, q.device)
+        if mask is not None:
+            p = torch.where(mask, p, torch.zeros_like(p))
+        dv[:, ks] += p.transpose(1, 2) @ dof[:, qs]
+        ds = p * (dof[:, qs] @ vf[:, ks].transpose(1, 2)
+                  - delta[:, qs, None])
+        dq[:, qs] = ds @ kf[:, ks] * scale
+        dk[:, ks] += ds.transpose(1, 2) @ qf[:, qs] * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def attention_fwd_ref(q, k, v, causal: bool, scale: float, window=0):
-    """(o in q's dtype, lse (BH, S) f32) in plain torch ops."""
+    """(o in q's dtype, lse (BH, S) f32) in plain torch ops; the chunked
+    form above CHUNKED_FROM queries."""
+    if q.shape[1] > CHUNKED_FROM:
+        return attention_fwd_chunked(q, k, v, causal, scale, window)
     s = torch.einsum("bsk,btk->bst", q.float(), k.float()) * scale
     mask = _mask(s.shape[1], s.shape[2], causal, window, s.device)
     if mask is not None:
@@ -100,7 +167,11 @@ def attention_fwd_ref(q, k, v, causal: bool, scale: float, window=0):
 def attention_bwd_ref(q, k, v, o, lse, do, causal: bool, scale: float,
                       window=0):
     """(dq, dk, dv) by the kernels' formula: P = exp(S*scale - lse),
-    D = rowsum(dO * O), dS = P * (dO V^T - D)."""
+    D = rowsum(dO * O), dS = P * (dO V^T - D); the chunked form above
+    CHUNKED_FROM queries."""
+    if q.shape[1] > CHUNKED_FROM:
+        return attention_bwd_chunked(q, k, v, o, lse, do, causal, scale,
+                                     window)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     p = torch.exp(torch.einsum("bsk,btk->bst", qf, kf) * scale
                   - lse[..., None])
@@ -125,7 +196,8 @@ def _aligned16(t):
 
 def flash_fwd(q, k, v, causal: bool, scale: float, window: int = 0):
     """(o, lse): the `flash_fwd` kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors, the kernel's outputs unwritten for `meta`
+    tensors."""
     _check(q, k, v)
     _check_window(window)
     if _device_kind(q) == "cpu":
@@ -134,6 +206,10 @@ def flash_fwd(q, k, v, causal: bool, scale: float, window: int = 0):
     bh, s, dk = q.shape
     o = torch.empty_like(v)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        work.record("flash_fwd", *work.attention_work(
+            "flash_fwd", bh, s, dk, q.dtype, causal, window, v.shape[-1]))
+        return o, lse
     launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
            o.data_ptr(), lse.data_ptr(), bh, s, dk, v.shape[-1],
            _DTYPE_CODE[q.dtype], int(causal), int(window), float(scale),
@@ -160,6 +236,12 @@ def flash_bwd(q, k, v, o, lse, do, causal: bool, scale: float,
     delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     common = (bh, s, q.shape[-1], v.shape[-1], _DTYPE_CODE[q.dtype],
               int(causal), int(window), float(scale))
+    if q.device.type == "meta":
+        for fn in ("flash_bwd_dq", "flash_bwd_dkdv"):
+            work.record(fn, *work.attention_work(
+                fn, bh, s, q.shape[-1], q.dtype, causal, window,
+                v.shape[-1]))
+        return dq, dk, dv, delta
     launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
            o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
            delta.data_ptr(), *common, device=q.device)

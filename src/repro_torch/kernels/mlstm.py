@@ -10,7 +10,9 @@ backward is two kernels: `mlstm_bwd_dqdk` (dq, dk) and then
 `mlstm_bwd_dv` (dv and the log-gate gradients, which need the finished
 dq and dk). A CUDA tensor launches the kernels (or raises); only a CPU
 tensor runs the plain versions, so the CPU tests exercise the same
-wiring.
+wiring. A `meta` tensor (the dry-run's) allocates what the CUDA path
+allocates, the workspaces included, launches nothing and adds the
+kernels' work to `work.TALLY`.
 
 Each kernel runs as passes: only the state recurrence walks the chunks
 in order (the forward's C and n, the backward's dC and dn), and
@@ -39,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.ref import NEG, mlstm_chunks, tril_ones
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -87,7 +89,7 @@ def _check(q, k, v, log_i, log_f, chunk: int) -> None:
     if not 1 <= chunk <= MAX_CHUNK or s % chunk:
         raise ValueError(f"chunk {chunk} must be in [1, {MAX_CHUNK}] and "
                          f"divide S = {s}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no mLSTM kernel for device {q.device}")
 
 
@@ -359,6 +361,10 @@ def mlstm_fwd(q, k, v, log_i, log_f, chunk: int, with_aux: bool = True):
            _f32(bh, nc, device=dev), _f32(bh, s, device=dev),
            _f32(bh, s, device=dev))
     ws = _f32(WS_ROWS, bh, s, device=dev)
+    if dev.type == "meta":
+        work.record("mlstm_fwd", *work.mlstm_work("mlstm_fwd", bh, s, kd,
+                                                  chunk, q.dtype))
+        return h, (aux if with_aux else None)
     launch("mlstm_fwd", *_ptrs(q, k, v, li, lf, h, *aux, ws), bh, s, kd,
            chunk, _DTYPE_CODE[q.dtype], kd ** -0.5, device=dev)
     return h, (aux if with_aux else None)
@@ -371,6 +377,10 @@ def _launch_dqdk(q, k, v, li, lf, h, dh, aux, chunk: int):
     dC = _f32(bh, s // chunk, kd, kd, device=dev)
     dn = _f32(bh, s // chunk, kd, device=dev)
     ws = _f32(WS_ROWS, bh, s, device=dev)
+    if dev.type == "meta":
+        work.record("mlstm_bwd_dqdk", *work.mlstm_work(
+            "mlstm_bwd_dqdk", bh, s, kd, chunk, q.dtype))
+        return dq, dk, dC, dn, ws
     launch("mlstm_bwd_dqdk", *_ptrs(q, k, v, li, lf, h, dh, *aux, dq, dk,
                                     dC, dn, ws),
            bh, s, kd, chunk, _DTYPE_CODE[q.dtype], kd ** -0.5, device=dev)
@@ -400,6 +410,10 @@ def _launch_dv(q, k, li, dh, m_loc, dC, ws, dq, dk, chunk: int):
     dev = q.device
     dv = _f32(bh, s, kd, device=dev)
     dli, dlf = _f32(bh, s, device=dev), _f32(bh, s, device=dev)
+    if dev.type == "meta":
+        work.record("mlstm_bwd_dv", *work.mlstm_work(
+            "mlstm_bwd_dv", bh, s, kd, chunk, q.dtype))
+        return dv, dli, dlf
     launch("mlstm_bwd_dv", *_ptrs(q, k, li, dh, m_loc, dC, ws, dq, dk, dv,
                                   dli, dlf),
            bh, s, kd, chunk, _DTYPE_CODE[q.dtype], kd ** -0.5, device=dev)

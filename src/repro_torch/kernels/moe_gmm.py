@@ -6,13 +6,15 @@ The counterpart of the Pallas TPU kernel in `repro/kernels/moe_gmm.py`
 (`_gmm_kernel`), which is forward-only; here `gmm_bwd_dx` and
 `gmm_bwd_dw` carry the gradient. A CUDA tensor launches the kernel (or
 raises); only a CPU tensor runs the plain version, so the CPU tests
-exercise the same wiring.
+exercise the same wiring. A `meta` tensor (the dry-run's) allocates what
+the CUDA path allocates, launches nothing and adds the kernel's work to
+`work.TALLY`.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 # the plain forward is the oracle itself
 from repro_torch.kernels.ref import grouped_matmul as gmm_fwd_ref
 
@@ -44,7 +46,7 @@ def _check(a, b, a_dims: str, b_dims: str, shared) -> None:
     if a.shape[0] != b.shape[0] or a.shape[ia] != b.shape[ib]:
         raise ValueError(f"shapes {tuple(a.shape)} {a_dims} and "
                          f"{tuple(b.shape)} {b_dims} do not agree")
-    if a.device.type not in ("cpu", "cuda"):
+    if a.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no grouped matmul kernel for device {a.device}")
     if a.shape[0] > MAX_EXPERTS:
         raise ValueError(f"{a.shape[0]} experts > {MAX_EXPERTS}")
@@ -75,6 +77,9 @@ def gmm_bwd_dw_ref(x, dy):
 def _run(fn: str, a, b, out_shape, e: int, m: int, k: int, n: int):
     out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
     a, b = a.contiguous(), b.contiguous()
+    if a.device.type == "meta":
+        work.record(fn, *work.gmm_work(e, m, k, n, a.dtype))
+        return out
     launch(fn, a.data_ptr(), b.data_ptr(), out.data_ptr(), e, m, k, n,
            _DTYPE_CODE[a.dtype], device=a.device)
     return out

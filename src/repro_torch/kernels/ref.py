@@ -135,3 +135,52 @@ def mlstm_stepwise(q, k, v, log_i, log_f):
         out.append(num / torch.maximum(den.abs(), torch.exp(-m_new))[:, None])
         m = m_new
     return torch.stack(out, 1).to(q.dtype)
+
+
+NEG_INF = -1e30
+
+
+def online_softmax(q, k, v, bias, *, q_chunk: int, kv_chunk: int, scale,
+                   kv_range=None):
+    """Attention in q chunks of `q_chunk` rows, each walking kv chunks of
+    `kv_chunk` keys with a running (max, sum, accumulator), the online
+    softmax of the reference's `chunked_attention`: memory O(q_chunk x
+    kv_chunk) a step, never the whole (S, T) logits.
+
+    q (..., S, K), k (..., T, K), v (..., T, V), any dtype (computed in
+    f32). `bias(qs, ks)`, for slices of the q rows and the keys, gives
+    an additive f32 bias (0, or NEG_INF where masked) broadcastable to
+    (..., qc, kc), or None where nothing is masked. `kv_range(qs)`, if
+    given, is the (lo, hi) span of keys any row of `qs` may see: kv
+    chunks outside it are skipped (a masked chunk adds nothing once a
+    row has a visible key). A ragged last chunk is taken as it is.
+    Returns (out (..., S, V) f32, lse (..., S) f32); a row's lse is its
+    max plus the log of its sum."""
+    S, T = q.shape[-2], k.shape[-2]
+    outs, lses = [], []
+    kf, vf = k.float(), v.float()
+    for q0 in range(0, S, q_chunk):
+        qs = slice(q0, min(q0 + q_chunk, S))
+        qc = q[..., qs, :].float() * scale
+        lo, hi = kv_range(qs) if kv_range is not None else (0, T)
+        acc = m = l = None
+        for k0 in range(lo - lo % kv_chunk, hi, kv_chunk):
+            ks = slice(k0, min(k0 + kv_chunk, T))
+            logits = qc @ kf[..., ks, :].transpose(-1, -2)
+            b = bias(qs, ks)
+            if b is not None:
+                logits = logits + b
+            if acc is None:
+                shape = logits.shape[:-1]
+                m = torch.full(shape, NEG_INF, device=q.device)
+                l = torch.zeros(shape, device=q.device)
+                acc = torch.zeros(shape + (v.shape[-1],), device=q.device)
+            m_new = torch.maximum(m, logits.amax(-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p @ vf[..., ks, :]
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+    return torch.cat(outs, -2), torch.cat(lses, -1)

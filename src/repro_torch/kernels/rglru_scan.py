@@ -9,13 +9,15 @@ over chunks of `chunk_len(B, S, D)` steps (reduce, carry, out; see the
 CUDA source), each pass with a plain version below that takes the chunk
 length. A CUDA tensor launches the kernel (or raises); only a CPU tensor
 runs the one-pass plain version, so the CPU tests exercise the same
-wiring.
+wiring. A `meta` tensor (the dry-run's) allocates what the CUDA path
+allocates, the workspace included, launches nothing and adds the
+kernel's work to `work.TALLY`.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 # the plain forward is the oracle itself
 from repro_torch.kernels.ref import rglru_scan as rglru_fwd_ref
 
@@ -63,7 +65,7 @@ def _check(a, *rest) -> None:
             raise ValueError(f"arrays must share shape and device; got "
                              f"{tuple(t.shape)} {t.device} against "
                              f"{tuple(a.shape)} {a.device}")
-    if a.device.type not in ("cpu", "cuda"):
+    if a.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no RG-LRU scan kernel for device {a.device}")
 
 
@@ -204,6 +206,10 @@ def _launch_fwd(a, x, chunk: int):
     ws ends holding each chunk's product of a and its carry."""
     h, ws = torch.empty_like(x), _workspace(a, chunk)
     b, s, d = a.shape
+    if a.device.type == "meta":
+        work.record("rglru_fwd", *work.scan_work("rglru_fwd", b, s, d,
+                                                 a.dtype, x.dtype))
+        return h, ws
     launch("rglru_fwd", a.data_ptr(), x.data_ptr(), h.data_ptr(),
            ws.data_ptr(), b, s, d, chunk, _DTYPE_CODE[a.dtype],
            _DTYPE_CODE[x.dtype], device=a.device)
@@ -217,6 +223,10 @@ def _launch_bwd(a, h, g, chunk: int):
     da, dx, ws = torch.empty_like(a), torch.empty_like(h), \
         _workspace(a, chunk)
     b, s, d = a.shape
+    if a.device.type == "meta":
+        work.record("rglru_bwd", *work.scan_work("rglru_bwd", b, s, d,
+                                                 a.dtype, h.dtype))
+        return da, dx, ws
     launch("rglru_bwd", a.data_ptr(), h.data_ptr(), g.data_ptr(),
            da.data_ptr(), dx.data_ptr(), ws.data_ptr(), b, s, d, chunk,
            _DTYPE_CODE[a.dtype], _DTYPE_CODE[h.dtype], device=a.device)

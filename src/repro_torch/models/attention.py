@@ -1,7 +1,8 @@
 """Attention primitives (counterpart of `repro/models/attention.py`):
-RoPE, the position mask, the plain dense attention, `attend`, which
-sends full-sequence attention through the CUDA kernels, and the KV
-caches (full and ring buffer) with single-token `decode_attend`.
+RoPE, the position mask, the plain dense, chunked (online softmax) and
+sliding-window attention, `attend`, which sends full-sequence attention
+through the CUDA kernels, and the KV caches (full and ring buffer) with
+single-token `decode_attend`.
 
 Layout conventions
   q:    (B, S, NKV, G, K)   NKV = physical kv heads, G = q-per-kv
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import online_softmax
 
 NEG_INF = -1e30
 PAD_SENTINEL = 2 ** 29
@@ -58,6 +60,59 @@ def dense_attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     p = torch.softmax(logits + bias[:, None, None], dim=-1)
     out = torch.einsum("bngst,btnk->bsngk", p, v.float())
     return out.to(q.dtype)
+
+
+def chunked_attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
+                      q_chunk=512, kv_chunk=1024, scale=None):
+    """Flash-style attention in plain torch ops, O(S * chunk) memory: q
+    chunks of `q_chunk` rows, each walking kv chunks of `kv_chunk` keys
+    with a running (max, denom, acc) (`ref.online_softmax`).
+    q:(B,S,N,G,K) k:(B,T,N,K) v:(B,T,N,V) -> (B,S,N,G,V) in q's dtype;
+    the mask from the positions, as `_mask_bias` gives it. The last q
+    and kv chunks may be short, where the reference pads them."""
+    B, S, N, G, K = q.shape
+    scale = scale or K ** -0.5
+
+    def bias(qs, ks):                                   # (B,1,1,qc,kc)
+        return _mask_bias(q_pos[:, qs], k_pos[:, ks], causal,
+                          window)[:, None, None]
+
+    out, _ = online_softmax(q.permute(0, 2, 3, 1, 4),
+                            k.permute(0, 2, 1, 3)[:, :, None],
+                            v.permute(0, 2, 1, 3)[:, :, None], bias,
+                            q_chunk=min(q_chunk, S),
+                            kv_chunk=min(kv_chunk, k.shape[1]), scale=scale)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def local_attention(q, k, v, q_pos, k_pos, *, window, q_chunk=512,
+                    scale=None):
+    """Sliding-window attention: each q chunk attends only the kv range
+    it can see (window + chunk keys), so the cost is O(S * window). As
+    in the reference, S no multiple of the chunk, or a span that covers
+    T, runs `chunked_attention`."""
+    S, K = q.shape[1], q.shape[-1]
+    T = k.shape[1]
+    q_chunk = min(q_chunk, S)
+    if S % q_chunk:
+        return chunked_attention(q, k, v, q_pos, k_pos, causal=True,
+                                 window=window, q_chunk=q_chunk, scale=scale)
+    span = window + q_chunk
+    if span >= T:
+        return chunked_attention(q, k, v, q_pos, k_pos, causal=True,
+                                 window=window, q_chunk=q_chunk,
+                                 kv_chunk=min(1024, T), scale=scale)
+    scale = scale or K ** -0.5
+    outs = []
+    for i in range(S // q_chunk):
+        # jax.lax.dynamic_slice's clamp: the span stays inside T
+        start = min(max(i * q_chunk + q_chunk - span, 0), T - span)
+        qs, ks = slice(i * q_chunk, (i + 1) * q_chunk), \
+            slice(start, start + span)
+        outs.append(dense_attention(q[:, qs], k[:, ks], v[:, ks],
+                                    q_pos[:, qs], k_pos[:, ks], causal=True,
+                                    window=window, scale=scale))
+    return torch.cat(outs, 1)
 
 
 def attend(q, k, v, q_pos, k_pos, *, causal=True, window=0,

@@ -184,14 +184,17 @@ def init_stack_cache(cfg: ArchConfig, batch: int, max_len: int, tp: int,
     return {"scan": scan, "tail": tail}
 
 
-def stack_cache_axes(cfg: ArchConfig, pattern=None, num_layers=None):
+def stack_cache_axes(cfg: ArchConfig, pattern=None, num_layers=None,
+                     tp: int = 1):
+    """The decode cache's axes (`blocks.block_cache_axes`) at model
+    extent `tp`."""
     period, n_periods, n_tail = scan_layout(cfg, pattern, num_layers)
     pattern = pattern or cfg.block_pattern
     scan_ax = tuple(
-        _stacked_axes(blocks.block_cache_axes(pattern[pos], cfg))
+        _stacked_axes(blocks.block_cache_axes(pattern[pos], cfg, tp))
         if n_periods else None
         for pos in range(period))
-    tail_ax = tuple(blocks.block_cache_axes(pattern[i % period], cfg)
+    tail_ax = tuple(blocks.block_cache_axes(pattern[i % period], cfg, tp)
                     for i in range(n_tail))
     return {"scan": scan_ax, "tail": tail_ax}
 

@@ -67,10 +67,11 @@ def _refuse(btype: str, decode: bool = False):
 
 def check_split(btype: str, cfg: ArchConfig, tp: int) -> None:
     """ValueError where a block of `btype` cannot split over `tp` model
-    ranks: MLA and the mLSTM have no head padding, so tp must divide
-    their heads (the attention blocks pad theirs, `plan_heads`)."""
+    ranks: MLA has no head padding, so tp must divide its heads (the
+    attention blocks pad theirs, `plan_heads`; the mLSTM's cell runs all
+    heads on every rank where tp does not divide them)."""
     _refuse(btype)
-    if btype in ("mla_moe", "mlstm") and cfg.num_heads % tp:
+    if btype == "mla_moe" and cfg.num_heads % tp:
         raise ValueError(f"the {btype} block's {cfg.num_heads} heads do "
                          f"not split over tp {tp}")
 
@@ -286,11 +287,12 @@ def block_axes(btype: str, cfg: ArchConfig) -> dict:
     return {"ln1": (None,), "cell": axes[btype](cfg)}
 
 
-def block_cache_axes(btype: str, cfg: ArchConfig) -> dict:
+def block_cache_axes(btype: str, cfg: ArchConfig, tp: int = 1) -> dict:
     """Logical sharding axes mirroring init_block_cache's structure: the
     reference's, but for the mLSTM's state, which is split over its
-    heads as the cell runs them under a mesh (the reference splits C's
-    and n's value lanes, `d_ff`, and keeps m whole)."""
+    heads as the cell runs them under a mesh of model extent `tp`, and
+    whole where tp does not divide them (the reference splits C's and
+    n's value lanes, `d_ff`, and keeps m whole)."""
     _refuse(btype, decode=True)
     kv = {"k": ("batch", None, "kv_heads", None),
           "v": ("batch", None, "kv_heads", None), "pos": SCALAR}
@@ -306,9 +308,9 @@ def block_cache_axes(btype: str, cfg: ArchConfig) -> dict:
     if btype == "rglru":
         return {"h": ("batch", "d_ff"), "conv": ("batch", None, "d_ff")}
     if btype == "mlstm":
-        return {"C": ("batch", "heads", None, None),
-                "n": ("batch", "heads", None), "m": ("batch", "heads"),
-                "conv": ("batch", None, "d_ff")}
+        h = None if cfg.num_heads % tp else "heads"
+        return {"C": ("batch", h, None, None), "n": ("batch", h, None),
+                "m": ("batch", h), "conv": ("batch", None, "d_ff")}
     return {"h": ("batch", None, None), "c": ("batch", None, None),
             "n": ("batch", None, None), "m": ("batch", None, None)}
 

@@ -20,13 +20,17 @@ projection is gathered over `model` and each rank takes its lanes of
 each half. The q, k, v and gate products contract over the lanes, so
 their partial sums are added over `model` (the gate biases after the
 sum) and each rank keeps its heads: a rank runs the cell on its heads,
-whose lanes are its block, which needs the head count to split over
-`model`. The sLSTM's recurrence runs whole on every rank.
+whose lanes are its block. Where the `model` extent does not divide the
+heads (xLSTM-350M's 4 on the production meshes' 16), every rank runs
+the cell on all heads, as the sLSTM's recurrence runs, then keeps its
+lanes of the group-normed output; the summed products enter that
+region through `to_model`, so each rank's gradient of them is the sum
+of every rank's. The sLSTM's recurrence runs whole on every rank.
 
 Decoding under a mesh carries the mLSTM's state in the layout its cell
-runs: C, n and m the rank's heads and the conv's context its lanes (the
-reference splits C's and n's value lanes); the sLSTM's state is whole
-on every rank.
+runs: C, n and m the rank's heads (all heads where the extent does not
+divide them) and the conv's context its lanes (the reference splits C's
+and n's value lanes); the sLSTM's state is whole on every rank.
 """
 from __future__ import annotations
 
@@ -159,12 +163,19 @@ def _groupnorm(x, groups: int, eps: float = 1e-6):
     return ((xf - mu) * torch.rsqrt(var + eps)).reshape(B, S, D).to(x.dtype)
 
 
+def cell_heads(cfg: ArchConfig, tp: int) -> int:
+    """The heads a `model` rank's mLSTM cell runs: its share, or all of
+    them where tp does not divide them."""
+    return cfg.num_heads if cfg.num_heads % tp else cfg.num_heads // tp
+
+
 def init_mlstm_state(cfg: ArchConfig, batch: int, device="cpu",
                      mesh=None) -> dict:
-    """The zero state; under `mesh` the rank's heads of C, n and m and its
-    lanes of the conv's context."""
+    """The zero state; under `mesh` the heads of C, n and m that the
+    rank's cell runs (`cell_heads`) and its lanes of the conv's
+    context."""
     dh = 2 * cfg.d_model // cfg.num_heads
-    H = local_extent(cfg.num_heads, "heads", mesh)
+    H = cell_heads(cfg, axis_size(mesh, "heads"))
     inner = local_extent(2 * cfg.d_model, "d_ff", mesh)
     f32 = dict(dtype=torch.float32, device=device)
     return {"C": torch.zeros((batch, H, dh, dh), **f32),
@@ -181,10 +192,15 @@ def apply_mlstm(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None,
     and the new state is None; with a decode state {"C", "n", "m",
     "conv"} it runs `mlstm_chunkwise` from it and returns the next.
     Under `mesh`, p holds the rank's lanes, the cell runs the rank's
-    heads and the state holds them (see the module's docstring)."""
+    heads (or all, `cell_heads`) and the state holds them (see the
+    module's docstring)."""
     B, S, D = x.shape
     tp = axis_size(mesh, "d_ff")
-    H = cfg.num_heads // tp
+    H = cell_heads(cfg, tp)
+    split = cfg.num_heads % tp == 0
+    # the summed products: the rank's heads, or all heads on every rank
+    heads = (lambda t, dim: split_model(t, mesh, dim)) if split else \
+        (lambda t, dim: to_model(t, mesh))
     # the whole [x_m | z] on every rank, the rank's lanes of each half
     up = gather_model(to_model(x, mesh) @ p["w_up"], mesh)
     inner = up.shape[-1] // 2
@@ -195,15 +211,15 @@ def apply_mlstm(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None,
                               None if state is None else state["conv"])
     xcf = xc.float()
     # each product is over the rank's lanes: summed over `model`, then
-    # the rank's heads kept
-    to_heads = lambda w: split_model(from_model(torch.einsum(
-        "bsi,ihk->bhsk", xcf, w.float()), mesh), mesh, 1)
+    # the rank's heads (or all of them) kept
+    to_heads = lambda w: heads(from_model(torch.einsum(
+        "bsi,ihk->bhsk", xcf, w.float()), mesh), 1)
     q, k, v = to_heads(p["w_q"]), to_heads(p["w_k"]), to_heads(p["w_v"])
     # the gate leaves are f32 at init and in the parameters' dtype after
     # an update; against f32 activations jnp promotes them to f32. The
     # bias is added once, after the sum
-    gate = lambda w, b: split_model(from_model(xcf @ w.float(), mesh) + b,
-                                    mesh, -1).transpose(1, 2)   # (B,H,S)
+    gate = lambda w, b: heads(from_model(xcf @ w.float(), mesh) + b,
+                              -1).transpose(1, 2)               # (B,H,S)
     log_i = gate(p["w_i"], p["b_i"])
     log_f = F.logsigmoid(gate(p["w_f"], p["b_f"]))
     new_state = None
@@ -214,8 +230,11 @@ def apply_mlstm(p: dict, x, cfg: ArchConfig, state: Optional[dict] = None,
             q, k, v, log_i, log_f, (state["C"], state["n"], state["m"]),
             chunk=min(chunk, S))
         new_state = {"C": C, "n": n, "m": m, "conv": new_conv}
-    h = h.transpose(1, 2).reshape(B, S, width).to(x.dtype)
-    h = _groupnorm(h, H) * p["ogate_ln"] + xc * p["skip"]
+    h = _groupnorm(h.transpose(1, 2).reshape(B, S, H * h.shape[-1])
+                   .to(x.dtype), H)
+    if not split:                       # every head here: the rank's lanes
+        h = h[..., lo:lo + width]
+    h = h * p["ogate_ln"] + xc * p["skip"]
     y = h * _silu(z.float()).to(x.dtype)
     return from_model(y @ p["w_down"], mesh), new_state
 

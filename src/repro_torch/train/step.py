@@ -121,7 +121,8 @@ def cache_specs(cfg: ArchConfig, shape: ShapeCfg, mesh=None,
 def cache_shardings(cfg: ArchConfig, mesh):
     """How the decode cache splits over `mesh` (mirrors init_cache): the
     reference's, but for the mLSTM's state (`blocks.block_cache_axes`)."""
-    return shardings_from_axes(backbone.stack_cache_axes(cfg), mesh)
+    return shardings_from_axes(backbone.stack_cache_axes(cfg, tp=_tp(mesh)),
+                               mesh)
 
 
 def state_shardings(cfg: ArchConfig, mesh) -> dict:

@@ -11,7 +11,15 @@ The listed edits (and nothing else) are allowed:
 - controller, state_sync: the reference's unused `import numpy as np`
   is left out;
 - campaign: `CampaignCfg` has a `device` field, which `build_controller`
-  passes to the engine."""
+  passes to the engine.
+
+The port's copy of the static invariant linter (`repro_torch/analysis`,
+all nine modules) is held the same way. Its listed edits: the package
+name and roots in its strings (`repro_torch` for `repro`: the CLI's
+name, `DEFAULT_ROOTS`, the summary line, a finding's pointer to
+`SURFACES`), its own baseline file (`analysis-baseline-torch.json`), and
+the determinism pass's rule for torch's global generator (`TORCH_RANDOM`,
+its branch in `_forbidden_calls` and the `call_keyword` it imports)."""
 import ast
 from pathlib import Path
 
@@ -103,6 +111,45 @@ def _undo_device(tree) -> int:
     return found
 
 
+class _PortStrings(ast.NodeTransformer):
+    """The linter copy's strings read as the reference's: `repro_torch`
+    as `repro`, its baseline file as the reference's."""
+
+    def visit_Constant(self, node):
+        if isinstance(node.value, str):
+            node.value = node.value.replace("repro_torch", "repro").replace(
+                "analysis-baseline-torch.json", "analysis-baseline.json")
+        return node
+
+
+def _undo_torch_rng(tree) -> int:
+    """Take the torch-generator rule out of the determinism pass: the
+    TORCH_RANDOM set, the `elif` branch that reads it and the
+    `call_keyword` import it needs. Returns how many of the three were
+    found."""
+    found = 0
+    kept = []
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and \
+                ast.unparse(node.targets[0]) == "TORCH_RANDOM":
+            found += 1
+            continue
+        if isinstance(node, ast.ImportFrom) and node.module == "base":
+            names = [a for a in node.names if a.name != "call_keyword"]
+            found += len(node.names) - len(names)
+            node.names = names
+        kept.append(node)
+    tree.body = kept
+    for node in ast.walk(tree):
+        if isinstance(node, ast.If) and len(node.orelse) == 1 and \
+                isinstance(node.orelse[0], ast.If) and \
+                "torch.manual_seed" in ast.unparse(node.orelse[0].test):
+            assert not node.orelse[0].orelse
+            node.orelse = []
+            found += 1
+    return found
+
+
 def _tree(path: Path, drop=()) -> ast.Module:
     return _Normalise(drop).visit(ast.parse(path.read_text()))
 
@@ -130,4 +177,19 @@ def test_copy_is_the_reference(name):
             == 1
     if name == "campaign":
         assert _undo_device(port) == 2
+    assert ast.dump(port) == ast.dump(ref)
+
+
+ANALYSIS = ["__init__", "__main__", "base", "charge_pass",
+            "determinism_pass", "journal_pass", "kinds_pass", "runner",
+            "steps_pass"]
+
+
+@pytest.mark.parametrize("name", ANALYSIS)
+def test_linter_copy_is_the_reference(name):
+    ref = _tree(ROOT / "src" / "repro" / "analysis" / f"{name}.py")
+    port = _PortStrings().visit(
+        _tree(ROOT / "src" / "repro_torch" / "analysis" / f"{name}.py"))
+    if name == "determinism_pass":
+        assert _undo_torch_rng(port) == 3
     assert ast.dump(port) == ast.dump(ref)

@@ -147,8 +147,13 @@ def test_gmm_wrappers_reject_what_the_kernels_do_not_take():
         moe_gmm.gmm_fwd(x.double(), w.double())
     with pytest.raises(ValueError, match=r"\(E, M, K\)"):
         moe_gmm.gmm_fwd(x[0], w)
-    with pytest.raises(ValueError, match="no grouped matmul kernel"):
-        moe_gmm.gmm_fwd(x.to("meta"), w.to("meta"))
+    # `meta` tensors (the dry-run's) get the kernel's output unwritten
+    # and launch nothing
+    moe_gmm.reset_launches()
+    out = moe_gmm.gmm_fwd(x.to("meta"), w.to("meta"))
+    assert (out.shape, out.dtype, out.device.type) == ((2, 5, 3),
+                                                       torch.float32, "meta")
+    assert not any(moe_gmm.LAUNCHES.values())
     # the public wrapper promotes mixed f32/bf16 operands, as jnp does
     assert ops.grouped_matmul(x, w.to(torch.bfloat16)).dtype == \
         torch.float32
